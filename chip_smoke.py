@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version, drive SLMFT best-of-10 listener generation
-at full width, and time it all.
+and the SLM pretraining step at full width, and time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -17,19 +17,40 @@ line):
    self case (3000, 1, 64) x L=256 at several t (Python int and device
    tensor), the cross case (300, 10, 64) with a key mask holding one fully
    masked row, and a GQA case with NQ = G = 4 under a t bound;
-5. the slice at full width (``slm_defaults()`` + ``vq_listener_defaults()``,
+5. K2/K3 ``flash_attention_fwd``/``_bwd`` in fp32 and bf16 at the training
+   step's four shapes and one D = 128 case, ragged key masks (one batch entry
+   fully masked at (384, 512, 64): zero output and gradients), a causal tail
+   tile at L = 255. Tolerances: output fp32 2e-5, bf16 2e-2 (absolute and
+   relative); gradients 1e-4 (fp32) and 2e-2 (bf16) of the reference's
+   largest magnitude;
+6. generation at full width (``slm_defaults()`` + ``vq_listener_defaults()``,
    random init from a seed, bf16): 25 synthetic clips of L=256, best-of-10
    through ``make_slmft_generator`` and ``evaluate_test_epoch`` with every
-   launch count set to 0 just before and read just after; then in fp32 at
-   B0=4, N=2 one token sequence teacher-forced through ``decode_step`` with
-   the kernels and with the plain versions (logits within 1e-3), and the VQ
-   codes on the card against the same model on the CPU;
-6. times from CUDA events after warmup: the median of 3 best-of-10 generate
-   calls, the median per-launch time of each kernel at the main path's shapes
-   (for K1 self, the median over sweeps t = 0..255 of a sweep's mean launch),
-   its plain version's, and one PyTorch library call on the same inputs where
-   there is one (yardstick only, never on the port's path); then the
-   ``kernels`` JSON line and, last, the device JSON line.
+   launch count set to 0 just before and read just after (K1 2040, K4 2,
+   K2/K3 0); then in fp32 at B0=4, N=2 one token sequence teacher-forced
+   through ``decode_step`` with the kernels and with the plain versions
+   (``plain_attention``; logits within 1e-3), and the VQ codes on the card
+   against the CPU's;
+7. training at full width: SLM, fp32 parameters under bf16 autocast, AdamW
+   (1e-5, weight decay 0.01) with clip 1.0 and the VQ encoders and
+   quantizers frozen, 32 synthetic CANDOR clips of L=256 (``bench.py:54``):
+   3 warmup steps, then 10 steps, each between its own pair of CUDA events,
+   with every launch count set to 0 just before and read just after (20
+   K2, 20 K3 and 2 K4 a step), finite losses, frozen parameters bitwise
+   unchanged and every trainable transformer parameter moved; then one fp32
+   step at B=4 with ragged lengths (128-256) with the kernels and with the
+   plain versions on the card (equal VQ codes, losses within 1e-5 relative,
+   gradients of the non-VQ leaves within 1e-3 of each leaf's largest
+   magnitude);
+8. times after warmup: the median of 3 best-of-10 generate calls (host
+   clock), the median per-launch time of each kernel at the main paths'
+   shapes from CUDA events (for K1 self, the median over sweeps t = 0..255
+   of a sweep's mean launch), its plain version's, and one PyTorch library
+   call on the same inputs where there is one (yardstick only, never on the
+   port's path); the training step's median, and three steps under
+   ``torch.profiler`` tracing the card only (device busy share of that
+   window, top device kernels); then the ``kernels`` JSON line and, last,
+   the device JSON line.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on tensor cores, 67 TFLOP/s fp32 on CUDA cores.
@@ -37,6 +58,7 @@ bf16 on tensor cores, 67 TFLOP/s fp32 on CUDA cores.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -97,6 +119,22 @@ def cuda_ms(fn, reps: int) -> float:
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Inside, the x-transformers stack calls the plain versions of K1
+    (``decode_attention``) and K2/K3 (``flash_attention``) on the card, so a
+    path can be held against itself without the kernels."""
+    from unittest import mock
+
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import flash_attention_plain
+    from dyadic_interaction_modeling_tpu_torch.kernels.decode import decode_attention_plain
+    from dyadic_interaction_modeling_tpu_torch.models import xtrans
+
+    with mock.patch.multiple(xtrans, decode_attention=decode_attention_plain,
+                             flash_attention=flash_attention_plain):
+        yield
 
 
 @phase
@@ -209,6 +247,78 @@ def k1_check():
     return worst
 
 
+HEADS = 12
+# (name, rows, L, D, key mask, causal, launches per training step); rows are
+# batch x heads, the key mask (rows / HEADS, L)
+K23_CASES = (
+    ("encoder_s/l (384,256,64) masked", 384, 256, 64, True, False, 8),
+    ("encoder_joint 2L (384,512,64) masked", 384, 512, 64, True, False, 4),
+    ("marginal joint (768,256,64) masked", 768, 256, 64, True, False, 4),
+    ("decoder self (768,255,64) causal", 768, 255, 64, False, True, 4),
+    ("D=128 (192,512,128) masked", 192, 512, 128, True, False, 0),
+)
+DEAD_CASE = 1  # index of the case with one fully masked batch entry
+
+
+def _attn_inputs(rows, l, d, dtype, g, masked, dead=False):
+    q, k, v, do = (torch.randn(rows, l, d, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        lens = torch.randint(l // 2, l + 1, (rows // HEADS,), device="cuda", generator=g)
+        mask = torch.arange(l, device="cuda")[None, :] < lens[:, None]
+        if dead:
+            mask[1] = False
+    return q, k, v, do, mask
+
+
+@phase
+def k23_check():
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    for dtype, tol_o, tol_g in ((torch.float32, 2e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)):
+        tag = str(dtype).replace("torch.", "")
+        e_o, e_g, e_ga = [], [], []
+        for i, (name, rows, l, d, masked, causal, _) in enumerate(K23_CASES):
+            q, k, v, do, mask = _attn_inputs(rows, l, d, dtype, g, masked, i == DEAD_CASE)
+            kw = dict(causal=causal, scale=d ** -0.5)
+            o, lse = flash_attention_fwd(q, k, v, mask, **kw)
+            ro, rlse = flash_attention_fwd_plain(q, k, v, mask, **kw)
+            grads = flash_attention_bwd(q, k, v, ro, do, rlse, mask, **kw)
+            refs = flash_attention_bwd_plain(q, k, v, ro, do, rlse, mask, **kw)
+            torch.cuda.synchronize()
+            diff = (o.float() - ro.float()).abs()
+            rtol = 0.0 if dtype == torch.float32 else tol_o
+            ok_o = bool((diff <= tol_o + rtol * ro.float().abs()).all())
+            fin = torch.isfinite(rlse)
+            same_inf = torch.equal(fin, torch.isfinite(lse))
+            err_lse = float((lse[fin] - rlse[fin]).abs().max())
+            err_g = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                     for a, b in zip(grads, refs)]
+            err_ga = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(grads, refs))
+            zero = True
+            if i == DEAD_CASE:
+                dead = slice(HEADS, 2 * HEADS)
+                zero = (float(o[dead].float().abs().max()) == 0.0 and all(
+                    float(x[dead].float().abs().max()) == 0.0 for x in grads)
+                    and bool(torch.isinf(lse[dead]).all()))
+            check(ok_o and same_inf and err_lse <= 1e-4 and max(err_g) <= tol_g and zero,
+                  f"K2/K3 {tag} {name}: o max abs err {float(diff.max()):.3g} "
+                  f"(tol {tol_o}{' + rel' if rtol else ''}), lse {err_lse:.3g}, dq/dk/dv "
+                  f"rel {err_g[0]:.3g}/{err_g[1]:.3g}/{err_g[2]:.3g} (tol {tol_g})"
+                  + (f", fully masked entry zero: {zero}" if i == DEAD_CASE else ""))
+            e_o.append(float(diff.max()))
+            e_g.append(max(err_g))
+            e_ga.append(err_ga)
+        worst[tag] = {"fwd_abs": max(e_o), "bwd_rel": max(e_g), "bwd_abs": max(e_ga)}
+    return worst
+
+
 def _model(dtype, seed=0):
     from dyadic_interaction_modeling_tpu_torch.config import (
         slm_defaults, vq_listener_defaults)
@@ -260,8 +370,10 @@ def slice_main_path():
           f"candidate shape {tuple(cands.shape)} == {(B0, N, L - 1, 56)}")
     check(bool(torch.isfinite(cands.float()).all()), "candidates finite")
     check(bool(((tokens >= 0) & (tokens < 512)).all()), "tokens in [0, 512)")
-    check(all(v > 0 for v in launches.values()),
-          "every kernel launched on the main path")
+    want = {"decode_attention": (L - 1) * 4 * 2, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0, "nearest_code": 2}
+    check(launches == want, f"generation launches {launches} == {want} (K1 self and "
+          "cross in 4 decoder layers x 255 steps, K4 twice, no K2/K3)")
     m = print_metrics(y_true, y_pred, xs, verbose=False)
     fd = [m[k] for k in ("fid_pose", "fid_exp", "mse_pose", "mse_exp")]
     check(all(v == v and abs(v) != float("inf") for v in fd),
@@ -273,7 +385,6 @@ def slice_main_path():
 def slice_reference():
     """fp32 at B0=4, N=2: kernels vs plain versions on the card, and the card's
     VQ codes against the CPU's."""
-    from dyadic_interaction_modeling_tpu_torch.kernels.decode import decode_attention_plain
     from dyadic_interaction_modeling_tpu_torch.models.xtrans import init_decoder_cache
 
     b0, n = 4, 2
@@ -303,12 +414,236 @@ def slice_reference():
         for t in range(L):
             tok = seq[:, t: t + 1]
             a = dec.decode_step(tok, caches[0], t, cross, maskc, n)
-            b = dec.decode_step(tok, caches[1], t, cross, maskc, n,
-                                attend=decode_attention_plain)
+            with plain_attention():
+                b = dec.decode_step(tok, caches[1], t, cross, maskc, n)
             worst = max(worst, float((a - b).abs().max()))
     check(worst <= 1e-3, f"teacher-forced decode_step fp32 B0={b0} N={n}, {L} steps: "
           f"logits max abs err kernel vs plain {worst:.3g} (tol 1e-3)")
     return worst
+
+
+TRAIN_B, TRAIN_STEPS, WARMUP_STEPS, PROFILED_STEPS = 32, 10, 3, 3
+STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 20,
+                 "flash_attention_bwd": 20, "nearest_code": 2}
+
+
+def _slm(seed):
+    from dyadic_interaction_modeling_tpu_torch.config import (
+        slm_defaults, vq_listener_defaults)
+    from dyadic_interaction_modeling_tpu_torch.models.slm import SLM
+
+    torch.manual_seed(seed)
+    return SLM(slm_defaults(), vq_listener_defaults())
+
+
+def _candor(n_clips, seed):
+    """n_clips synthetic CANDOR clips of length L, as one batch on the card."""
+    from dyadic_interaction_modeling_tpu_torch.data.loader import (
+        PaddedBatchLoader, slm_batch_from_collated)
+    from dyadic_interaction_modeling_tpu_torch.data.synthetic import synthetic_candor_dataset
+
+    ds = synthetic_candor_dataset(n_clips=n_clips, min_len=L, max_len=L, seed=seed)
+    collated = next(iter(PaddedBatchLoader(ds, n_clips, shuffle=False)))
+    return tuple(torch.as_tensor(x, device="cuda") for x in slm_batch_from_collated(collated))
+
+
+@phase
+def train_main_path():
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import make_slm_train_step
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.models.slm import SLM_FROZEN
+
+    model = _slm(seed=0).to("cuda")
+    opt = make_optimizer(model, 1e-5, 0.01, SLM_FROZEN)
+    step = make_slm_train_step(model, opt, 1.0, torch.bfloat16)
+    batch = _candor(TRAIN_B, seed=7)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logs = [step(batch, g) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(TRAIN_STEPS)]
+    kernels.reset_launch_counts()
+    for start, end in pairs:
+        start.record()
+        logs.append(step(batch, g))
+        end.record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    times = [start.elapsed_time(end) / 1e3 for start, end in pairs]
+    want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
+    say(f"launches in {TRAIN_STEPS} training steps: {launches}")
+    check(launches == want, f"training launches == {want} (20 K2, 20 K3, 2 K4 a step)")
+    check(all(bool(torch.isfinite(v).all()) for lg in logs for v in lg.values()),
+          f"losses finite over {len(logs)} steps")
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    check(bool(frozen) and all(torch.equal(model.get_parameter(k), before[k])
+                               for k in frozen),
+          f"{len(frozen)} frozen VQ encoder/quantizer tensors bitwise unchanged")
+    moving = [k for k, p in model.named_parameters() if p.requires_grad
+              and k.startswith(("encoder_", "decoder_joint"))]
+    still = [k for k in moving if torch.equal(model.get_parameter(k), before[k])]
+    check(not still, f"all {len(moving)} trainable transformer tensors moved "
+          f"(unmoved: {still[:5]})")
+    med = statistics.median(times)
+    first = {k: round(float(v), 4) for k, v in logs[0].items()}
+    last = {k: round(float(v), 4) for k, v in logs[-1].items()}
+    say(f"SLM train step B={TRAIN_B} L={L} bf16 autocast, CUDA events: median "
+        f"{med * 1e3:.2f} ms of "
+        f"{[round(t * 1e3, 2) for t in times]} -> {TRAIN_B * L / med:.0f} frames/s")
+    say(f"logs of the first warmup step {first}; of the last step {last}")
+    return {"model": model, "step": step, "batch": batch, "gen": g,
+            "launches": launches, "step_ms": med * 1e3,
+            "step_runs_ms": [t * 1e3 for t in times]}
+
+
+@phase
+def train_reference():
+    """One fp32 step at B=4 with ragged lengths: kernels against the plain
+    versions on the card, from the same weights and noise."""
+    b = 4
+    src_v, tgt, src_a, _ = _candor(b, seed=9)
+    lens = torch.tensor([L, 211, 170, 128], device="cuda")
+    mask = torch.arange(L, device="cuda")[None, :] < lens[:, None]
+    state = _slm(seed=1).state_dict()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    noise = tuple(torch.rand(b, L, device="cuda", generator=g) for _ in range(2))
+    results, codes = [], []
+    for plain in (False, True):
+        model = _slm(seed=1)
+        model.load_state_dict(state)
+        model = model.to("cuda")
+        with plain_attention() if plain else contextlib.nullcontext():
+            with torch.no_grad():
+                codes.append(model.forward_vq(src_v, tgt, mask))
+            out = model(src_v, tgt, src_a, mask, noise=noise)
+            out.total_loss.backward()
+        logs = {k: float(v) for k, v in out.logs.items()}
+        logs["total"] = float(out.total_loss.detach())
+        results.append((logs, {k: p.grad for k, p in model.named_parameters()
+                               if p.grad is not None}))
+    check(all(torch.equal(a, b) for a, b in zip(*codes)),
+          "both runs' speaker and listener VQ codes equal (K4 is deterministic)")
+    (lk, gk), (lp, gp) = results
+    rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    check(max(rel.values()) <= 1e-5, "fp32 step B=4 ragged, kernels vs plain: losses "
+          f"rel err {max(rel.values()):.3g} (tol 1e-5): {lk}")
+    errs = {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max().clamp_min(1e-30))
+            for k in gp}
+    core = {k: e for k, e in errs.items() if "_vq." not in k}
+    vq = {k: e for k, e in errs.items() if "_vq." in k}
+    worst = max(core, key=core.get)
+    check(core[worst] <= 1e-3, f"gradients of {len(core)} non-VQ leaves within 1e-3 of "
+          f"each leaf's max: worst {core[worst]:.3g} ({worst})")
+    say(f"VQ-decoder leaves (float-noise gradients, reported only): worst "
+        f"{max(vq.values()):.3g} over {len(vq)} leaves")
+    return {"loss_rel": max(rel.values()), "grad_rel": core[worst]}
+
+
+def _attn_bound(rows, l, d, dtype, mask, causal, bwd):
+    """Bytes each input is read and each output written once; operations of
+    the (query, key) pairs this data attends: 4 D per pair forward (Q Kᵀ,
+    P V), 10 D backward (Q Kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ Q)."""
+    es = torch.finfo(dtype).bits // 8
+    if causal:
+        pairs = rows * l * (l + 1) / 2
+    elif mask is not None:
+        pairs = (rows // mask.shape[0]) * l * float(mask.sum())
+    else:
+        pairs = rows * l * l
+    extra = rows * l * 4 + (0 if mask is None else mask.numel())
+    io = rows * l * d * es
+    if bwd:
+        return bound_ms(8 * io + extra, 10 * d * pairs, dtype)
+    return bound_ms(4 * io + extra, 4 * d * pairs, dtype)
+
+
+@phase
+def train_timings(train):
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    import torch.nn.functional as F
+    from dyadic_interaction_modeling_tpu_torch.cli.profile_generate import _busy_us
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+
+    step, batch, gen = train["step"], train["batch"], train["gen"]
+    windows = {}
+    # the same window of PROFILED_STEPS steps traced twice: the card alone
+    # (the busy share reported), then also the host's operators
+    for tag, acts in (("card", [ProfilerActivity.CUDA]),
+                      ("card+host", [ProfilerActivity.CPU, ProfilerActivity.CUDA])):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                step(batch, gen)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = _busy_us(kern)
+        windows[tag] = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+                        "busy_share": busy / wall_us, "kernels": len(kern)}
+        say(f"{PROFILED_STEPS} train steps traced ({tag}): wall {wall_us / 1e3:.2f} ms, "
+            f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
+            f"{len(kern)} kernels")
+    check(windows["card"]["kernels"] > 0, "tracing the card alone records its kernels")
+    by_name = {}
+    for e in kern:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.end - e.time_range.start, cnt + 1)
+    top = [(name, tot / PROFILED_STEPS, cnt / PROFILED_STEPS) for name, (tot, cnt)
+           in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]]
+    say("device time a step by kernel (card+host window):")
+    for name, tot, cnt in top:
+        say(f"  {tot / 1e3:9.3f} ms  {cnt:7.1f} x  {name[:100]}")
+    del train["model"], train["step"]
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+    cases = {}
+    for name, rows, l, d, masked, causal, per_step in K23_CASES:
+        q, k, v, do, mask = _attn_inputs(rows, l, d, bf, g, masked)
+        kw = dict(causal=causal, scale=d ** -0.5)
+        o, lse = flash_attention_fwd(q, k, v, mask, **kw)
+        b = rows // HEADS
+        q4, k4, v4 = (x.view(b, HEADS, l, d).detach().requires_grad_() for x in (q, k, v))
+        m4 = None if mask is None else mask[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=m4, is_causal=causal, scale=kw["scale"])
+        out4 = sdpa()
+        do4 = do.view_as(out4)
+        fwd = dict(
+            ms=cuda_ms(lambda i: flash_attention_fwd(q, k, v, mask, **kw), 20),
+            plain_ms=cuda_ms(lambda i: flash_attention_fwd_plain(q, k, v, mask, **kw), 10),
+            library_ms=cuda_ms(lambda i: sdpa(), 20))
+        fwd["bound_ms"], fwd["bound_by"] = _attn_bound(rows, l, d, bf, mask, causal, False)
+        bwd = dict(
+            ms=cuda_ms(lambda i: flash_attention_bwd(q, k, v, o, do, lse, mask, **kw), 20),
+            plain_ms=cuda_ms(lambda i: flash_attention_bwd_plain(q, k, v, o, do, lse, mask,
+                                                                 **kw), 10),
+            library_ms=cuda_ms(lambda i: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                             retain_graph=True), 20))
+        bwd["bound_ms"], bwd["bound_by"] = _attn_bound(rows, l, d, bf, mask, causal, True)
+        cases[name] = {"per_step": per_step, "fwd": fwd, "bwd": bwd}
+        for tag, r in (("K2", fwd), ("K3", bwd)):
+            say(f"{tag} {name} bf16: kernel {r['ms'] * 1e3:.1f} us, plain "
+                f"{r['plain_ms'] * 1e3:.1f} us, SDPA {r['library_ms'] * 1e3:.1f} us, "
+                f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+        del q, k, v, do, o, lse, q4, k4, v4, out4
+        torch.cuda.empty_cache()
+    per_step = {}
+    for which in ("fwd", "bwd"):
+        per_step[which] = {key: sum(c["per_step"] * c[which][key] for c in cases.values())
+                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        say(f"{which} summed over a step's 20 launches: " + ", ".join(
+            f"{key} {val:.3f}" for key, val in per_step[which].items()))
+    return {"busy_share": windows["card"]["busy_share"], "windows": windows,
+            "top": [(n, t / 1e3, c) for n, t, c in top], "cases": cases,
+            "per_step": per_step}
 
 
 @phase
@@ -384,25 +719,50 @@ def timings(main):
             **out}
 
 
-def kernels_line(launches, k4, k1, t, build_s):
+def _flash_entry(name, line, which, tt, k23, launches):
+    cases = tt["cases"]
+    return {"name": name, "route": "cuda",
+            "source": "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"dyadic_interaction_modeling_tpu/ops/pallas/attention.py:{line}",
+            "launches": launches[name],
+            "launches_by_path": {"generate": 0, f"train_{TRAIN_STEPS}_steps": launches[name]},
+            "max_abs_err": k23["bfloat16"]["fwd_abs" if which == "fwd" else "bwd_abs"],
+            # launch-weighted means over one training step's 20 launches
+            **{key: val / 20 for key, val in tt["per_step"][which].items()},
+            "bound_by": max((c[which] for c in cases.values() if c["per_step"]),
+                            key=lambda r: r["bound_ms"])["bound_by"],
+            "cases": {k: c[which] for k, c in cases.items()}, "max_err": k23}
+
+
+def kernels_line(gen_launches, train, k4, k1, k23, t, tt, build_s):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    tl = train["launches"]
     return {"kernels": [
         {"name": "decode_attention", "route": "cuda",
          "source": "dyadic_interaction_modeling_tpu_torch/csrc/decode_attention.cu",
          "replaces": "dyadic_interaction_modeling_tpu/ops/pallas/decode.py:129",
-         "launches": launches["decode_attention"], "max_abs_err": k1["bfloat16"],
-         **mean, "bound_by": "bytes",
+         "launches": gen_launches["decode_attention"],
+         "launches_by_path": {"generate": gen_launches["decode_attention"],
+                              f"train_{TRAIN_STEPS}_steps": tl["decode_attention"]},
+         "max_abs_err": k1["bfloat16"], **mean, "bound_by": "bytes",
          "cases": {"self (3000,1,64) L=256 t=0..255 bf16": self_,
                    "cross (300,10,64) L=256 masked bf16": cross,
                    "max_abs_err": k1}},
+        _flash_entry("flash_attention_fwd", 111, "fwd", tt, k23, tl),
+        _flash_entry("flash_attention_bwd", 152, "bwd", tt, k23, tl),
         {"name": "nearest_code", "route": "cuda",
          "source": "dyadic_interaction_modeling_tpu_torch/csrc/vq_argmin.cu",
          "replaces": "dyadic_interaction_modeling_tpu/ops/pallas/vq.py:49",
-         "launches": launches["nearest_code"], "max_abs_err": k4["max_abs_err"],
-         **t["vq"], "agree": k4["agree"]},
+         "launches": gen_launches["nearest_code"] + tl["nearest_code"],
+         "launches_by_path": {"generate": gen_launches["nearest_code"],
+                              f"train_{TRAIN_STEPS}_steps": tl["nearest_code"]},
+         "max_abs_err": k4["max_abs_err"], **t["vq"], "agree": k4["agree"]},
     ], "generate_ms": t["generate_ms"], "generate_runs_ms": t["generate_runs_ms"],
+        "train_step_ms": train["step_ms"], "train_step_runs_ms": train["step_runs_ms"],
+        "train_frames_per_s": TRAIN_B * L / train["step_ms"] * 1e3,
+        "train_busy_share": tt["busy_share"], "train_traced_windows": tt["windows"],
         "build_s": build_s}
 
 
@@ -420,13 +780,20 @@ def main() -> int:
     build_s = build()
     k4 = k4_check()
     k1 = k1_check()
+    k23 = k23_check()
     main_run = slice_main_path()
     slice_reference()
     t = timings(main_run) if main_run else None
-    if FAILURES or None in (smi, build_s, k4, k1, t):
+    gen_launches = main_run[3] if main_run else None
+    del main_run
+    torch.cuda.empty_cache()
+    train = train_main_path()
+    train_ref = train_reference()
+    tt = train_timings(train) if train else None
+    if FAILURES or None in (smi, build_s, k4, k1, k23, t, train, train_ref, tt):
         say(f"FAILED: {FAILURES}")
         return 1
-    say(json.dumps(kernels_line(main_run[3], k4, k1, t, build_s)))
+    say(json.dumps(kernels_line(gen_launches, train, k4, k1, k23, t, tt, build_s)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 // Python binding of the port's CUDA kernels: the one source that includes
 // PyTorch's headers (they take the bulk of the build time). Its callers, the
-// wrappers in kernels/decode.py and kernels/vq.py, check device, dtype, shape
-// and contiguity and raise on what a kernel does not take. Each function
-// here allocates its output, launches on PyTorch's current stream of the
-// input's device and checks the launch.
+// wrappers in kernels/decode.py, kernels/attention.py and kernels/vq.py,
+// check device, dtype, shape and contiguity and raise on what a kernel does
+// not take. Each function here allocates its outputs (and scratch), launches
+// on PyTorch's current stream of the input's device and checks the launch.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAException.h>
@@ -14,6 +14,15 @@
 
 namespace {
 
+// A key mask of (rows / m, L): its pointer (null when absent) and m.
+const uint8_t* mask_ptr(const c10::optional<torch::Tensor>& key_mask) {
+  return key_mask ? static_cast<const uint8_t*>(key_mask->data_ptr()) : nullptr;
+}
+
+int mask_div(const torch::Tensor& q, const c10::optional<torch::Tensor>& key_mask) {
+  return key_mask ? (int)(q.size(0) / key_mask->size(0)) : 1;
+}
+
 torch::Tensor decode_attention(const torch::Tensor& q, const torch::Tensor& k,
                                const torch::Tensor& v,
                                const c10::optional<torch::Tensor>& key_mask,
@@ -22,14 +31,49 @@ torch::Tensor decode_attention(const torch::Tensor& q, const torch::Tensor& k,
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = torch::empty_like(q);
   C10_CUDA_CHECK(decode_attention_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-      key_mask ? static_cast<const uint8_t*>(key_mask->data_ptr()) : nullptr,
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr(key_mask),
       t ? t->data_ptr<int32_t>() : nullptr, (int)t_val, out.data_ptr(), (int)q.size(0),
-      (int)q.size(1), (int)k.size(1), (int)q.size(2),
-      key_mask ? (int)(q.size(0) / key_mask->size(0)) : 1, (float)scale,
-      q.scalar_type() == torch::kBFloat16, at::cuda::getCurrentCUDAStream()));
+      (int)q.size(1), (int)k.size(1), (int)q.size(2), mask_div(q, key_mask),
+      (float)scale, q.scalar_type() == torch::kBFloat16,
+      at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
+}
+
+std::vector<torch::Tensor> flash_attention_fwd(const torch::Tensor& q,
+                                               const torch::Tensor& k,
+                                               const torch::Tensor& v,
+                                               const c10::optional<torch::Tensor>& key_mask,
+                                               bool causal, double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto o = torch::empty_like(q);
+  auto lse = torch::empty({q.size(0), q.size(1)}, q.options().dtype(torch::kFloat));
+  C10_CUDA_CHECK(flash_attention_fwd_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr(key_mask), o.data_ptr(),
+      lse.data_ptr<float>(), (int)q.size(0), (int)q.size(1), (int)q.size(2),
+      mask_div(q, key_mask), causal, (float)scale, q.scalar_type() == torch::kBFloat16,
+      at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {o, lse};
+}
+
+std::vector<torch::Tensor> flash_attention_bwd(
+    const torch::Tensor& q, const torch::Tensor& k, const torch::Tensor& v,
+    const torch::Tensor& o, const torch::Tensor& dout, const torch::Tensor& lse,
+    const c10::optional<torch::Tensor>& key_mask, bool causal, double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  auto dq = torch::empty_like(q);
+  auto dk = torch::empty_like(k);
+  auto dv = torch::empty_like(v);
+  auto delta = torch::empty_like(lse);
+  C10_CUDA_CHECK(flash_attention_bwd_launch(
+      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+      lse.data_ptr<float>(), mask_ptr(key_mask), delta.data_ptr<float>(),
+      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), (int)q.size(0), (int)q.size(1),
+      (int)q.size(2), mask_div(q, key_mask), causal, (float)scale,
+      q.scalar_type() == torch::kBFloat16, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {dq, dk, dv};
 }
 
 torch::Tensor vq_argmin(const torch::Tensor& z, const torch::Tensor& codebook) {
@@ -47,5 +91,7 @@ torch::Tensor vq_argmin(const torch::Tensor& z, const torch::Tensor& codebook) {
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("decode_attention", &decode_attention, "K1: one decode attention step");
+  m.def("flash_attention_fwd", &flash_attention_fwd, "K2: flash attention forward");
+  m.def("flash_attention_bwd", &flash_attention_bwd, "K3: flash attention backward");
   m.def("vq_argmin", &vq_argmin, "K4: nearest-codebook argmin");
 }

@@ -19,6 +19,25 @@ cudaError_t decode_attention_launch(const void* q, const void* k, const void* v,
                                     int D, int mask_div, float scale, bool bf16,
                                     cudaStream_t stream);
 
+// K2, flash_attention.cu. q, k, v and o (rows, L, D), D in {64, 128}, bf16
+// when `bf16`, else fp32; lse (rows, L) fp32. mask as for K1 (null: none).
+cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v,
+                                       const uint8_t* mask, void* o, float* lse,
+                                       int rows, int L, int D, int mask_div,
+                                       bool causal, float scale, bool bf16,
+                                       cudaStream_t stream);
+
+// K3, flash_attention.cu. Inputs as K2's plus dout (like o); dq, dk, dv like
+// q; delta (rows, L) fp32 scratch. Two launches: dq (which also writes delta),
+// then dk/dv.
+cudaError_t flash_attention_bwd_launch(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout,
+                                       const float* lse, const uint8_t* mask,
+                                       float* delta, void* dq, void* dk, void* dv,
+                                       int rows, int L, int D, int mask_div,
+                                       bool causal, float scale, bool bf16,
+                                       cudaStream_t stream);
+
 // K4, vq_argmin.cu. z (n, d) and codebook (n_e, d) fp32 -> idx (n,) int32.
 cudaError_t vq_argmin_launch(const float* z, const float* codebook, int32_t* idx,
                              int n, int n_e, int d, cudaStream_t stream);

@@ -46,13 +46,17 @@ def pad_collate(batch: Sequence[Tuple], min_bucket: int = 32, max_len: int = 102
 
 class PaddedBatchLoader:
     """Minimal batch loader over an indexable dataset, yielding
-    ``pad_collate`` tuples (shuffled with ``seed`` when ``shuffle``)."""
+    ``pad_collate`` tuples (shuffled with ``seed + epoch`` when ``shuffle``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
 
     def __len__(self):
         return math.ceil(len(self.dataset) / self.batch_size)
@@ -60,7 +64,7 @@ class PaddedBatchLoader:
     def __iter__(self) -> Iterator:
         idx = list(range(len(self.dataset)))
         if self.shuffle:
-            random.Random(self.seed).shuffle(idx)
+            random.Random(self.seed + self.epoch).shuffle(idx)
         for i in range(0, len(idx), self.batch_size):
             yield pad_collate([self.dataset[j] for j in idx[i: i + self.batch_size]])
 

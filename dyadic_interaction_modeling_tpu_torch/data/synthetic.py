@@ -1,6 +1,6 @@
 """Synthetic ViCo-shaped clips, so the pipeline runs without the licensed data.
 
-A copy of ``synthetic_vico_dataset`` from
+A copy of ``synthetic_vico_dataset`` and ``synthetic_candor_dataset`` from
 ``dyadic_interaction_modeling_tpu/data/synthetic.py``: smooth band-limited
 motion (sums of random sinusoids per channel) plus Gaussian audio features,
 the same numbers for the same seed.
@@ -58,4 +58,18 @@ def synthetic_vico_dataset(n_clips: int = 16, min_len: int = 24, max_len: int = 
                                    clip["audio"]], axis=1)
         items.append((combined, clip["video_listener"], f"synthetic_{i}", i % 7,
                       i % 5, i % 3))
+    return ListDataset(items)
+
+
+def synthetic_candor_dataset(n_clips: int = 16, min_len: int = 24, max_len: int = 96,
+                             seed: int = 0) -> ListDataset:
+    """CANDOR-shaped items for SLM pretraining: (speaker motion (56) + audio
+    (768) features, listener motion, name, 0, 0, 0)."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n_clips):
+        length = int(rng.integers(min_len, max_len + 1))
+        clip = synthetic_vico_clip(rng, length)
+        combined = np.concatenate([clip["video_speaker"], clip["audio"]], axis=1)
+        items.append((combined, clip["video_listener"], f"candor_{i}", 0, 0, 0))
     return ListDataset(items)

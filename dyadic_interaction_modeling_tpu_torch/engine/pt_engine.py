@@ -1,15 +1,22 @@
-"""Best-of-N listener generation and its evaluation (x_engine_pt.py:232-277).
+"""SLM training and best-of-N listener generation (x_engine_pt.py).
 
-Counterpart of ``dyadic_interaction_modeling_tpu/engine/pt_engine.py:195-318``:
-``make_slmft_generator`` runs the N resamples of every clip as ONE batched
-generate whose N*B0 rows share the B0 clips' cross-attention context
-(``context_groups``), then decodes the tokens to motion; the per-clip pick by
-Frechet distance happens on the host.
+Counterpart of ``dyadic_interaction_modeling_tpu/engine/pt_engine.py``:
+
+* ``make_slm_train_step``, ``train_epoch``, ``evaluate_epoch`` (:51-162):
+  one optimizer step of the SLM pretraining loss, with global-norm clipping
+  over the trainable parameters and, on the card, bf16 autocast over fp32
+  parameters (the counterpart of flax ``dtype=bfloat16`` with fp32
+  ``param_dtype``);
+* ``make_slmft_generator`` (:195-318) runs the N resamples of every clip as
+  ONE batched generate whose N*B0 rows share the B0 clips' cross-attention
+  context (``context_groups``), then decodes the tokens to motion; the
+  per-clip pick by Frechet distance happens on the host.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Tuple
+import logging
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +27,72 @@ from ..metrics.eval_utils import (
 )
 from ..models.slm import SLMFT
 from ..models.xtrans import generate_tokens
+from .train_state import clip_by_global_norm
+
+log = logging.getLogger(__name__)
+
+
+def _autocast(device: torch.device, amp_dtype: Optional[torch.dtype]):
+    return torch.autocast(device_type=device.type, dtype=amp_dtype,
+                          enabled=amp_dtype is not None)
+
+
+def make_slm_train_step(model, optimizer: torch.optim.Optimizer, clip_norm: float,
+                        amp_dtype: Optional[torch.dtype] = None) -> Callable:
+    """(batch, generator=None, noise=None) -> logs: one optimizer step.
+
+    batch = (src_v, tgt, src_a, mask) tensors on the model's device;
+    ``generator`` draws the masking noise, or ``noise`` injects it (see
+    ``SLM.forward``). The forward runs under autocast to ``amp_dtype`` when
+    given; the cross-entropy's log-softmax stays fp32. The gradients of the
+    optimizer's parameters are clipped to a global norm of ``clip_norm``
+    (none when 0). Returns the six logs as detached device tensors, so a
+    step never waits for the card."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(batch, generator: Optional[torch.Generator] = None, noise=None
+             ) -> Dict[str, torch.Tensor]:
+        src_v, tgt, src_a, mask = batch
+        optimizer.zero_grad(set_to_none=True)
+        with _autocast(src_v.device, amp_dtype):
+            out = model(src_v, tgt, src_a, mask, generator=generator, noise=noise)
+        out.total_loss.backward()
+        if clip_norm > 0:
+            clip_by_global_norm(params, clip_norm)
+        optimizer.step()
+        return {k: v.detach() for k, v in out.logs.items()}
+
+    return step
+
+
+def train_epoch(loader: Iterable, train_step: Callable,
+                generator: Optional[torch.Generator] = None, epoch: int = 0
+                ) -> Dict[str, float]:
+    """One pass over ``loader``'s tensor batches, logging every 200 steps
+    (x_engine_pt.train_epoch's cadence); the last step's logs."""
+    logs = {}
+    for i, batch in enumerate(loader):
+        logs = train_step(batch, generator)
+        if (i + 1) % 200 == 0:
+            log.info("Epoch %d batch %d: %s", epoch, i + 1,
+                     " ".join(f"{k} {float(v):.4f}" for k, v in logs.items()))
+    return {k: float(v) for k, v in logs.items()}
+
+
+@torch.no_grad()
+def evaluate_epoch(model, loader: Iterable, generator: Optional[torch.Generator] = None,
+                   amp_dtype: Optional[torch.dtype] = None) -> Dict[str, float]:
+    """Mean of the logs over ``loader``'s tensor batches: the teacher-forced
+    validation loss (x_engine_pt.py:134-165)."""
+    sums: Dict[str, float] = {}
+    n = 0
+    for src_v, tgt, src_a, mask in loader:
+        with _autocast(src_v.device, amp_dtype):
+            logs = model(src_v, tgt, src_a, mask, generator=generator).logs
+        for k, v in logs.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        n += 1
+    return {k: v / max(n, 1) for k, v in sums.items()}
 
 
 def make_slmft_generator(model: SLMFT) -> Callable:

@@ -1,29 +1,92 @@
-"""SLMFT: listener generation with the SLM stack (seq2seq_pretrain.py:325-514).
+"""The SLM family: dyadic pretraining (SLM) and listener generation (SLMFT).
 
-Counterpart of ``dyadic_interaction_modeling_tpu/models/slm.py:117-358`` for
-the generation path: the frozen VQ tokenizers, the causal speaker encoders
-and the decoder context. The module holds exactly the parameters of the JAX
-package's SLMFT tree, under the reference state_dict keys, so weights move
-between the two with ``load_state_dict(strict=True)``:
+Counterpart of ``dyadic_interaction_modeling_tpu/models/slm.py:57-358``
+(seq2seq_pretrain.py:72-514): the frozen VQ tokenizers, the continuous
+encoders, the cross-predicting token decoder and, for SLM, the pretraining
+losses. Each module holds exactly the parameters of the JAX package's tree,
+under the reference state_dict keys, so weights move between the two with
+``load_state_dict(strict=True)``. Shared by both (``_SLMBase``): the speaker
+and listener VQs, ``encoder_s``, ``encoder_joint``, the four patch
+embeddings, ``norm_s`` and ``decoder_joint``. The encoders have no
+``project_out`` (they only return embeddings). SLM adds:
 
-* ``speaker_vq`` has no decoder (SLMFT never decodes speaker codes);
-* the encoders have no ``project_out`` (they only return embeddings);
-* the decoder has no positional embedding (seq2seq_pretrain.py:386);
-* there is no ``encoder_l``, ``norm_l`` or ``norm`` (the SLM pretraining
-  model's, unused by SLMFT).
+* ``encoder_l``, ``norm_l`` and ``norm``;
+* the speaker VQ's decoder (SLMFT never decodes speaker codes);
+* the decoder's positional embedding (SLMFT's has none,
+  seq2seq_pretrain.py:386).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..metrics.loss import pairwise_distance_loss
 from .vq_vae import VQAutoEncoder
-from .xtrans import ContinuousTransformerWrapper, TokenDecoder
+from .xtrans import (
+    IGNORE,
+    ContinuousTransformerWrapper,
+    TokenDecoder,
+    ar_cross_entropy,
+    ar_inputs_targets,
+)
 
-IGNORE = -100
+# SLM's frozen parameters (seq2seq_pretrain.py:100-113): the VQ quantizers
+# and encoders; the VQ decoders train. Module-name prefixes of the port.
+SLM_FROZEN = ("speaker_vq.quantize", "speaker_vq.encoder",
+              "listener_vq.quantize", "listener_vq.encoder")
+
+
+def random_masking_unstructured(noise: torch.Tensor, valid_mask: torch.Tensor,
+                                mask_ratio: float) -> torch.Tensor:
+    """Per row, the ``floor(len * ratio)`` valid positions of lowest uniform
+    ``noise`` (B, L): bool (B, L), True = masked (seq2seq_pretrain.py:171-183)."""
+    noise = torch.where(valid_mask, noise, float("inf"))
+    order = torch.argsort(noise, dim=1, stable=True)
+    ranks = torch.argsort(order, dim=1, stable=True)
+    k = (valid_mask.sum(dim=1) * mask_ratio).to(torch.int32)
+    return ranks < k[:, None]
+
+
+def masked_mean(x: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
+    """Mean over the valid frames of each sample: (B, L, D) -> (B, D)."""
+    m = valid_mask.to(x.dtype)[:, :, None]
+    return (x * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
+
+
+def info_nce(s_rep: torch.Tensor, l_rep: torch.Tensor, valid_mask: torch.Tensor,
+             temp: float = 0.05) -> Tuple[torch.Tensor, torch.Tensor]:
+    """InfoNCE between the masked-mean speaker and listener representations,
+    and its accuracy (seq2seq_pretrain.py:270-298)."""
+    s = masked_mean(s_rep, valid_mask)
+    l = masked_mean(l_rep, valid_mask)
+    s = s / torch.linalg.vector_norm(s, dim=-1, keepdim=True).clamp_min(1e-12)
+    l = l / torch.linalg.vector_norm(l, dim=-1, keepdim=True).clamp_min(1e-12)
+    total = (s @ l.T) / temp
+    nce = -torch.diagonal(torch.log_softmax(total, dim=0)).mean()
+    pred = torch.softmax(total, dim=0).argmax(dim=0)
+    c_acc = (pred == torch.arange(total.shape[0], device=pred.device)).float().mean()
+    return nce, c_acc
+
+
+def continuous_loss(pred: torch.Tensor, target: torch.Tensor,
+                    frame_mask: torch.Tensor) -> torch.Tensor:
+    """Masked pose/expression distance of VQ-decoded frames ``pred``
+    (B, Lp, C) to ``target`` (B, L, C) without its frame 0
+    (seq2seq_pretrain.py:256-268)."""
+    target, mask = target[:, 1:], frame_mask[:, 1:]
+    lp = min(pred.shape[1], target.shape[1])
+    c = pred.shape[-1]
+    return pairwise_distance_loss(pred[:, :lp].reshape(-1, c),
+                                  target[:, :lp].reshape(-1, c),
+                                  mask[:, :lp].reshape(-1))
+
+
+class SLMOutputs(NamedTuple):
+    total_loss: torch.Tensor
+    logs: Dict[str, torch.Tensor]
 
 
 class _ARWrapper(nn.Module):
@@ -34,10 +97,11 @@ class _ARWrapper(nn.Module):
         self.net = net
 
 
-class SLMFT(nn.Module):
-    """Listener finetune / eval model."""
+class _SLMBase(nn.Module):
+    """The stack both models share (seq2seq_pretrain.py:116-165);
+    ``pretrain`` adds SLM's parts (module docstring)."""
 
-    def __init__(self, cfg, vq_cfg):
+    def __init__(self, cfg, vq_cfg, pretrain: bool):
         super().__init__()
         if cfg.num_tokens != vq_cfg.n_embed:
             raise ValueError(f"decoder vocab ({cfg.num_tokens}) must equal the VQ "
@@ -45,22 +109,27 @@ class SLMFT(nn.Module):
         self.cfg, self.vq_cfg = cfg, vq_cfg
         dh = cfg.get("attn_dim_head", 64)
         kvh = cfg.get("attn_kv_heads", 0) or None
-        self.speaker_vq = VQAutoEncoder(vq_cfg, with_decoder=False)
+        self.speaker_vq = VQAutoEncoder(vq_cfg, with_decoder=pretrain)
         self.listener_vq = VQAutoEncoder(vq_cfg)
         enc = dict(dim=cfg.dim, max_seq_len=cfg.enc_max_seq_len,
                    depth=cfg.enc_depth, heads=cfg.enc_heads, dim_head=dh,
                    kv_heads=kvh)
         self.encoder_s = ContinuousTransformerWrapper(cfg.dim_in, **enc)
+        if pretrain:
+            self.encoder_l = ContinuousTransformerWrapper(cfg.dim_in, **enc)
         self.encoder_joint = ContinuousTransformerWrapper(cfg.dim, **enc)
         self.patch_embed_s = nn.Parameter(torch.zeros(1, 1, cfg.dim_in))
         self.patch_embed_l = nn.Parameter(torch.zeros(1, 1, cfg.dim_in))
         self.patch_embed_dec_s = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         self.patch_embed_dec_l = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         self.norm_s = nn.LayerNorm(cfg.dim, eps=1e-6)  # flax's default eps
+        if pretrain:
+            self.norm_l = nn.LayerNorm(cfg.dim, eps=1e-6)
+            self.norm = nn.LayerNorm(cfg.dim, eps=1e-6)
         self.decoder_joint = _ARWrapper(TokenDecoder(
             num_tokens=cfg.num_tokens, dim=cfg.dim + cfg.dim_audio,
             max_seq_len=cfg.dec_max_seq_len, depth=cfg.dec_depth,
-            heads=cfg.dec_heads, dim_head=dh, use_abs_pos_emb=False,
+            heads=cfg.dec_heads, dim_head=dh, use_abs_pos_emb=pretrain,
             kv_heads=kvh))
 
     @property
@@ -84,6 +153,95 @@ class SLMFT(nn.Module):
         z_s = torch.where(pos_s < (lengths * fq)[:, None], idx_s, 0)
         z_l = torch.where(pos_l < lengths[:, None], idx_l, IGNORE)
         return z_s, z_l
+
+
+class SLM(_SLMBase):
+    """Dyadic masked pretraining model (seq2seq_pretrain.py:72-323)."""
+
+    def __init__(self, cfg, vq_cfg):
+        super().__init__(cfg, vq_cfg, pretrain=True)
+
+    def forward_encoder(self, v_speaker, v_listener, valid_mask, noise_s, noise_l):
+        """Mask 15% of each stream's valid frames, encode both streams, then
+        the 2L joint pass and the two marginal joint passes, batched as one
+        (seq2seq_pretrain.py:201-223)."""
+        ratio = self.cfg.mask_ratio
+        mask_speaker = random_masking_unstructured(noise_s, valid_mask, ratio)
+        mask_listener = random_masking_unstructured(noise_l, valid_mask, ratio)
+        v_s = (v_speaker + self.patch_embed_s).masked_fill(mask_speaker[:, :, None], 0.0)
+        v_l = (v_listener + self.patch_embed_l).masked_fill(mask_listener[:, :, None], 0.0)
+        x_s = self.encoder_s(v_s, mask=valid_mask)
+        x_l = self.encoder_l(v_l, mask=valid_mask)
+        x_joint = self.encoder_joint(torch.cat([x_s, x_l], dim=1),
+                                     mask=torch.cat([valid_mask, valid_mask], dim=1))
+        b = x_l.shape[0]
+        y = self.encoder_joint(torch.cat([x_l, x_s], dim=0),
+                               mask=torch.cat([valid_mask, valid_mask], dim=0))
+        x_l, x_s = y[:b], y[b:]
+        return (self.norm_s(x_s), self.norm_l(x_l), self.norm(x_joint),
+                mask_speaker, mask_listener)
+
+    def forward_decoder(self, x_s, x_l, z_s, z_l, x_a, valid_mask):
+        """Cross-prediction, both directions in one batched pass of the shared
+        decoder: speaker codes from the listener stream and the reverse
+        (seq2seq_pretrain.py:225-239)."""
+        x_s = torch.cat([x_s + self.patch_embed_dec_s, x_a.to(x_s.dtype)], dim=-1)
+        x_l = torch.cat([x_l + self.patch_embed_dec_l, x_a.to(x_l.dtype)], dim=-1)
+        inp_s, tgt_s = ar_inputs_targets(z_s)
+        inp_l, tgt_l = ar_inputs_targets(z_l)
+        b = inp_s.shape[0]
+        px = self.decoder(torch.cat([inp_s, inp_l], dim=0),
+                          context=torch.cat([x_l, x_s], dim=0),
+                          context_mask=torch.cat([valid_mask, valid_mask], dim=0))
+        px_s, px_l = px[:b], px[b:]
+        return ar_cross_entropy(px_s, tgt_s), ar_cross_entropy(px_l, tgt_l), px_s, px_l
+
+    def forward_vq_decoder(self, logits_s, logits_l):
+        """Argmax codes decoded without lengths, so row b of the batch gets
+        positional encoding b (the reference quirk, as the JAX package)."""
+        return (self.speaker_vq.decode_indices(logits_s.argmax(dim=-1)),
+                self.listener_vq.decode_indices(logits_l.argmax(dim=-1)))
+
+    def forward(self, v_speaker: torch.Tensor, v_listener: torch.Tensor,
+                v_audio: torch.Tensor, valid_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> SLMOutputs:
+        """Total loss and the six logs of one batch.
+
+        ``noise``: the (speaker, listener) pair of uniform (B, L) masking
+        noise; drawn from ``generator`` when absent."""
+        with torch.no_grad():  # stop_gradient (slm.py:261)
+            z_s, z_l = self.forward_vq(v_speaker, v_listener, valid_mask)
+        if noise is None:
+            shape, dev = valid_mask.shape, valid_mask.device
+            noise = (torch.rand(shape, generator=generator, device=dev),
+                     torch.rand(shape, generator=generator, device=dev))
+        v_speaker, v_listener = v_speaker.to(self.dtype), v_listener.to(self.dtype)
+        x_s, x_l, x_joint, mask_speaker, mask_listener = self.forward_encoder(
+            v_speaker, v_listener, valid_mask, *noise)
+        nce, c_acc = info_nce(x_s, x_l, valid_mask, self.cfg.contrastive_temp)
+        l = x_s.shape[1]
+        # only masked positions remain CE targets (seq2seq_pretrain.py:307-309)
+        z_s = torch.where(mask_speaker, z_s, IGNORE)
+        z_l = torch.where(mask_listener, z_l, IGNORE)
+        l_ce_s, l_ce_l, px_s, px_l = self.forward_decoder(
+            x_joint[:, :l], x_joint[:, l:], z_s, z_l, v_audio, valid_mask)
+        pred_s, pred_l = self.forward_vq_decoder(px_s, px_l)
+        l_cont_s = continuous_loss(pred_s, v_speaker, mask_speaker)
+        l_cont_l = continuous_loss(pred_l, v_listener, mask_listener)
+        total = l_ce_s + l_ce_l + l_cont_s + l_cont_l + nce
+        logs = {"l_ce_s": l_ce_s, "l_ce_l": l_ce_l, "l_cont_s": l_cont_s,
+                "l_cont_l": l_cont_l, "nce": nce, "c_acc": c_acc}
+        return SLMOutputs(total, logs)
+
+
+class SLMFT(_SLMBase):
+    """Listener finetune / eval model: the generation side
+    (seq2seq_pretrain.py:325-514)."""
+
+    def __init__(self, cfg, vq_cfg):
+        super().__init__(cfg, vq_cfg, pretrain=False)
 
     def forward_encoder(self, v_speaker: torch.Tensor,
                         valid_mask: torch.Tensor) -> torch.Tensor:

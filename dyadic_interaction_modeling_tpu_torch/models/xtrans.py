@@ -13,25 +13,29 @@ linears, ``pos_emb.emb.weight`` the position table (applied times
 ``dim ** -0.5``), ``token_emb.emb.weight`` the token table.
 
 The per-token attention of the decode loop (``step_self``, ``step_cross``)
-goes through ``kernels.decode.decode_attention`` (K1): the CUDA kernel on
-the card, the plain version on the CPU. Encoder attention is a plain
-``torch.matmul`` + softmax; the JAX package also computes it outside Pallas
-when an ``attn_mask`` is given, which SLMFT always does.
+goes through ``kernels.decode.decode_attention`` (K1), and a self-attention
+without an ``attn_mask`` through ``kernels.attention.flash_attention`` (K2
+forward, K3 backward), whatever its length: the JAX package's
+512 <= L <= 2048 window (``xtrans.py:54``) is a TPU timing gate. Both run
+their CUDA kernels on the card and their plain versions on the CPU. Every
+other attention (cross-attention, a self-attention with an ``attn_mask``)
+is a plain ``torch.matmul`` + softmax, as the JAX package's dense path.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import flash_attention
 from ..kernels.decode import decode_attention
 
 NEG_INF = float("-inf")
-Attend = Callable[..., torch.Tensor]
+IGNORE = -100  # the ignore_index of token targets
 
 
 class XTNorm(nn.Module):
@@ -88,6 +92,21 @@ class XAttention(nn.Module):
         return out.reshape(b, self.heads, n, self.dim_head).transpose(1, 2).reshape(
             b, n, self.heads * self.dim_head)
 
+    def _flash_attend(self, q, k, v, key_mask) -> torch.Tensor:
+        """(B, H, L, D) q and (B, KVH, L, D) k, v -> (B, L, H*D). Under
+        kv_heads K/V are repeated to full heads first, as the JAX flash path
+        does (``xtrans.py:191-192``); autograd sums their gradients."""
+        b, h, n, d = q.shape
+        if self.group > 1:
+            k = k.repeat_interleave(self.group, dim=1)
+            v = v.repeat_interleave(self.group, dim=1)
+        km = None if key_mask is None else key_mask.to(torch.bool).contiguous()
+        out = flash_attention(q.reshape(b * h, n, d).contiguous(),
+                              k.reshape(b * h, n, d).contiguous(),
+                              v.reshape(b * h, n, d).contiguous(), km,
+                              causal=self.causal, scale=self.scale)
+        return out.reshape(b, h, n, d).transpose(1, 2).reshape(b, n, h * d)
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 key_mask: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -96,6 +115,8 @@ class XAttention(nn.Module):
         q = self._split(self.to_q(x), self.heads)
         k = self._split(self.to_k(kv_src), self.kvh)
         v = self._split(self.to_v(kv_src), self.kvh)
+        if context is None and attn_mask is None:
+            return self.to_out(self._flash_attend(q, k, v, key_mask))
         nq, g = q.shape[2], self.group
         dots = torch.matmul(self._fold_q(q), k.transpose(-1, -2)).float() * self.scale
         lk = dots.shape[-1]
@@ -128,8 +149,7 @@ class XAttention(nn.Module):
                 self._split(self.to_v(context), self.kvh).contiguous())
 
     def step_self(self, x_t: torch.Tensor, cache_k: torch.Tensor,
-                  cache_v: torch.Tensor, t, attend: Attend = decode_attention
-                  ) -> torch.Tensor:
+                  cache_v: torch.Tensor, t) -> torch.Tensor:
         """One causal token against the KV cache, which is updated IN PLACE
         at position ``t`` (the JAX package returns a new cache instead).
 
@@ -141,13 +161,12 @@ class XAttention(nn.Module):
         cache_v[:, :, t] = self.to_v(x_t).reshape(b, kvh, dh)
         # (B, 1, H*Dh) is (B, KVH, G, Dh) row-major: the folded query rows
         q = self.to_q(x_t).reshape(b * kvh, self.group, dh)
-        o = attend(q, cache_k.view(b * kvh, lmax, dh),
-                   cache_v.view(b * kvh, lmax, dh), t, scale=self.scale)
+        o = decode_attention(q, cache_k.view(b * kvh, lmax, dh),
+                             cache_v.view(b * kvh, lmax, dh), t, scale=self.scale)
         return self.to_out(o.reshape(b, 1, self.heads * dh))
 
     def step_cross(self, x_t: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   key_mask: Optional[torch.Tensor], groups: int = 1,
-                   attend: Attend = decode_attention) -> torch.Tensor:
+                   key_mask: Optional[torch.Tensor], groups: int = 1) -> torch.Tensor:
         """One token against precomputed context K/V.
 
         ``groups > 1``: best-of-N shares one context across N samples.
@@ -162,8 +181,8 @@ class XAttention(nn.Module):
                              f"and groups={groups}")
         q = self.to_q(x_t).reshape(n, b0, self.heads, dh).permute(1, 2, 0, 3)
         q = q.reshape(b0 * kvh, self.group * n, dh).contiguous()
-        o = attend(q, k.view(b0 * kvh, lk, dh), v.view(b0 * kvh, lk, dh),
-                   None, key_mask, scale=self.scale)
+        o = decode_attention(q, k.view(b0 * kvh, lk, dh), v.view(b0 * kvh, lk, dh),
+                             None, key_mask, scale=self.scale)
         # (B0*KVH, G*N, Dh) -> (B0, H, N, Dh) -> (N*B0, 1, H*Dh)
         o = o.reshape(b0, self.heads, n, dh).permute(2, 0, 1, 3)
         return self.to_out(o.reshape(nb, 1, self.heads * dh))
@@ -244,15 +263,13 @@ class DecoderLayers(nn.Module):
 
     def step(self, x_t: torch.Tensor, cache: Dict[str, torch.Tensor], t,
              cross_kv: List[Tuple[torch.Tensor, torch.Tensor]],
-             context_mask: Optional[torch.Tensor] = None, cross_groups: int = 1,
-             attend: Attend = decode_attention) -> torch.Tensor:
+             context_mask: Optional[torch.Tensor] = None, cross_groups: int = 1
+             ) -> torch.Tensor:
         for i in range(self.depth):
             ((ns,), sa), ((nc,), ca), ((nf,), ff) = self._blocks(i)
-            x_t = x_t + sa.step_self(ns(x_t), cache[f"k_{i}"], cache[f"v_{i}"], t,
-                                     attend=attend)
+            x_t = x_t + sa.step_self(ns(x_t), cache[f"k_{i}"], cache[f"v_{i}"], t)
             k, v = cross_kv[i]
-            x_t = x_t + ca.step_cross(nc(x_t), k, v, context_mask, cross_groups,
-                                      attend=attend)
+            x_t = x_t + ca.step_cross(nc(x_t), k, v, context_mask, cross_groups)
             x_t = x_t + ff(nf(x_t))
         return self.final_norm(x_t)
 
@@ -336,14 +353,30 @@ class TokenDecoder(nn.Module):
 
     def decode_step(self, token: torch.Tensor, cache, t: int, cross_kv,
                     context_mask: Optional[torch.Tensor] = None,
-                    cross_groups: int = 1,
-                    attend: Attend = decode_attention) -> torch.Tensor:
+                    cross_groups: int = 1) -> torch.Tensor:
         """token (B, 1) at position ``t`` -> logits (B, num_tokens); writes
         the token's K/V into ``cache`` in place."""
         h = self._embed(token, t)
-        h = self.attn_layers.step(h, cache, t, cross_kv, context_mask,
-                                  cross_groups, attend=attend)
+        h = self.attn_layers.step(h, cache, t, cross_kv, context_mask, cross_groups)
         return self.to_logits(h)[:, 0]
+
+
+def ar_inputs_targets(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shifted teacher-forcing split (AutoregressiveWrapper.forward):
+    inputs ``x[:, :-1]`` with ignored (-100) positions set to 0, targets
+    ``x[:, 1:]``."""
+    inp, target = x[:, :-1], x[:, 1:]
+    return torch.where(inp == IGNORE, 0, inp), target
+
+
+def ar_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Token CE in fp32, mean over the targets that are not -100; 0 when
+    none is kept (where ``F.cross_entropy(ignore_index=-100)`` gives NaN)."""
+    v = logits.shape[-1]
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, targets.clamp(0, v - 1).long()[..., None])[..., 0]
+    keep = (targets != IGNORE).float()
+    return (nll * keep).sum() / keep.sum().clamp_min(1.0)
 
 
 def top_k_filter(logits: torch.Tensor, frac_num_tokens: float = 0.1) -> torch.Tensor:

@@ -13,7 +13,8 @@ Layout notes:
   ``gamma`` (param) + ``beta`` (zero buffer); positional tables are stored
   times ``dim ** 0.5`` because the forward applies ``dim ** -0.5``.
 * Leaves absent from the flax tree (a never-used ``project_out``, SLMFT's
-  speaker-VQ decoder) are absent from the port's modules too.
+  speaker-VQ decoder and decoder ``pos_emb``) are absent from the port's
+  modules too.
 """
 
 from __future__ import annotations
@@ -171,8 +172,11 @@ def jax_vq_to_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
     return _to_torch(sd)
 
 
-def jax_slmft_to_state_dict(params, slm_cfg, vq_cfg) -> Dict[str, torch.Tensor]:
-    """``models.slm.SLMFT`` params -> the port's ``SLMFT`` state_dict."""
+def jax_slm_to_state_dict(params, slm_cfg, vq_cfg) -> Dict[str, torch.Tensor]:
+    """``models.slm.SLM`` or ``SLMFT`` params -> the port's ``SLM`` or
+    ``SLMFT`` state_dict: every part the tree holds (SLM's ``encoder_l``,
+    ``norm_l``, ``norm``, speaker-VQ decoder and decoder ``pos_emb``
+    included)."""
     p = _unwrap(params)
     sd: Dict[str, np.ndarray] = {}
     for vq in ("speaker_vq", "listener_vq"):
@@ -182,9 +186,10 @@ def jax_slmft_to_state_dict(params, slm_cfg, vq_cfg) -> Dict[str, torch.Tensor]:
                "patch_embed_dec_l"):
         if nm in p:
             sd[nm] = _np(p[nm])
-    if "norm_s" in p:
-        _layernorm(sd, "norm_s", p["norm_s"])
-    for enc in ("encoder_s", "encoder_joint"):
+    for nm in ("norm_s", "norm_l", "norm"):
+        if nm in p:
+            _layernorm(sd, nm, p[nm])
+    for enc in ("encoder_s", "encoder_l", "encoder_joint"):
         if enc in p:
             _xt_continuous(sd, enc, p[enc], slm_cfg.enc_depth, slm_cfg.dim)
     if "decoder_joint" in p:

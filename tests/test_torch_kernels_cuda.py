@@ -70,6 +70,65 @@ def test_nearest_code_kernel_orders_nan_as_the_plain_version(cuda):
     assert int(got[0]) == 211 and int(got[7]) == 0
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,l,d,causal,masked", [
+    (8, 200, 64, False, True),    # ragged tail, key mask, one dead batch entry
+    (6, 255, 64, True, False),    # the decoder's causal self-attention
+    (4, 130, 128, True, True),    # D = 128
+])
+def test_flash_attention_kernels_match_plain(cuda, dtype, tol, rows, l, d, causal, masked):
+    """K2 (o, lse) and K3 (dq, dk, dv) against their plain versions; errors
+    relative to the reference's largest magnitude."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+
+    q, k, v, do = (torch.randn(rows, l, d, device="cuda", generator=cuda).to(dtype)
+                   for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.rand(rows // 2, l, device="cuda", generator=cuda) < 0.7
+        mask[:, 0] = True
+        mask[1] = False
+    o, lse = flash_attention_fwd(q, k, v, mask, causal=causal, scale=d ** -0.5)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, mask, causal=causal, scale=d ** -0.5)
+    grads = flash_attention_bwd(q, k, v, ro, do, rlse, mask, causal=causal, scale=d ** -0.5)
+    refs = flash_attention_bwd_plain(q, k, v, ro, do, rlse, mask, causal=causal,
+                                     scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    assert torch.equal(torch.isinf(lse), torch.isinf(rlse))
+    fin = torch.isfinite(rlse)
+    torch.testing.assert_close(lse[fin], rlse[fin], atol=1e-4, rtol=1e-5)
+    for g, r in zip(grads, refs):
+        assert g.dtype == dtype
+        err = float((g.float() - r.float()).abs().max() / r.float().abs().max())
+        assert err <= tol, err
+    if masked:
+        assert float(o[2:4].float().abs().max()) == 0.0
+        assert max(float(g[2:4].float().abs().max()) for g in grads) == 0.0
+
+
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    from dyadic_interaction_modeling_tpu_torch.kernels import LAUNCHES
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
+        flash_attention, flash_attention_plain)
+
+    x = [torch.randn(4, 96, 64, device="cuda", generator=cuda, requires_grad=True)
+         for _ in range(3)]
+    before = dict(LAUNCHES)
+    flash_attention(*x, causal=True, scale=0.125).square().sum().backward()
+    grads = [t.grad.clone() for t in x]
+    assert LAUNCHES["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    for t in x:
+        t.grad = None
+    flash_attention_plain(*x, causal=True, scale=0.125).square().sum().backward()
+    for g, t in zip(grads, x):
+        torch.testing.assert_close(g, t.grad, atol=1e-4, rtol=1e-4)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     from dyadic_interaction_modeling_tpu_torch.kernels.decode import decode_attention
     from dyadic_interaction_modeling_tpu_torch.kernels.vq import nearest_code
@@ -81,3 +140,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         nearest_code(torch.randn(8, 16, device="cuda").half(),
                      torch.randn(4, 16, device="cuda").half())
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import flash_attention_fwd
+
+    x = torch.randn(4, 32, 48, device="cuda")
+    with pytest.raises(ValueError, match="D in"):
+        flash_attention_fwd(x, x, x, causal=False, scale=0.1)
+    x = torch.randn(4, 32, 64, device="cuda")
+    with pytest.raises(ValueError, match="key_mask"):
+        flash_attention_fwd(x, x, x, torch.ones(3, 32, device="cuda", dtype=torch.bool),
+                            causal=False, scale=0.1)

@@ -48,10 +48,12 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_entry_points_default_to_cuda():
+    from dyadic_interaction_modeling_tpu_torch.cli import train_s2s_pretrain
     from dyadic_interaction_modeling_tpu_torch.cli.test_s2s_pretrain import get_parser
     from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import evaluate_test_epoch
 
     assert get_parser().parse_args(["--synthetic"]).device == "cuda"
+    assert train_s2s_pretrain.get_parser().parse_args(["--synthetic"]).device == "cuda"
     assert inspect.signature(evaluate_test_epoch).parameters["device"].default == "cuda"
 
 

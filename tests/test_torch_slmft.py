@@ -1,6 +1,6 @@
 """The torch port's SLMFT best-of-N slice against the JAX package's, end to
 end at a few layers and narrow widths: weights through
-``jax_slmft_to_state_dict`` (strict load), ``encode_context``, the best-of-N
+``jax_slm_to_state_dict`` (strict load), ``encode_context``, the best-of-N
 generator (greedy and shared-noise sampled), FD selection, the metric
 battery, and the CLI twin."""
 
@@ -25,7 +25,7 @@ from dyadic_interaction_modeling_tpu_torch import config as TC
 from dyadic_interaction_modeling_tpu_torch.engine import pt_engine as TE
 from dyadic_interaction_modeling_tpu_torch.metrics.reporting import print_metrics
 from dyadic_interaction_modeling_tpu_torch.models.slm import SLMFT
-from dyadic_interaction_modeling_tpu_torch.utils.weights import jax_slmft_to_state_dict
+from dyadic_interaction_modeling_tpu_torch.utils.weights import jax_slm_to_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(dim=32, dim_audio=16, enc_depth=1, dec_depth=2, enc_heads=2,
@@ -51,7 +51,7 @@ def slice_pair():
     params = jax.jit(jm.init)(jax.random.PRNGKey(1), vs, vl, va, mask,
                               jax.random.PRNGKey(2))["params"]
     tm = SLMFT(tcfg, tvq)
-    tm.load_state_dict(jax_slmft_to_state_dict(
+    tm.load_state_dict(jax_slm_to_state_dict(
         jax.tree_util.tree_map(np.asarray, params), tcfg, tvq), strict=True)
     batch = (vs, vl, va, mask)
     return jm, params, jcfg, tm.eval(), tcfg, batch
@@ -186,7 +186,9 @@ def test_evaluate_test_epoch_on_cpu(slice_pair):
 
 def test_cli_twin_synthetic_on_cpu(tmp_path):
     out = tmp_path / "pred.pkl"
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread: the model is tiny, and in a parallel test run more threads
+    # only wait on each other at every operator's barrier
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "dyadic_interaction_modeling_tpu_torch.cli.test_s2s_pretrain",
          "--synthetic", "--device", "cpu", "--beam-size", "2", "--out", str(out),
