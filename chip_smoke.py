@@ -17,12 +17,15 @@ line):
    self case (3000, 1, 64) x L=256 at several t (Python int and device
    tensor), the cross case (300, 10, 64) with a key mask holding one fully
    masked row, and a GQA case with NQ = G = 4 under a t bound;
-5. K2/K3 ``flash_attention_fwd``/``_bwd`` in fp32 and bf16 at the training
-   step's four shapes and one D = 128 case, ragged key masks (one batch entry
-   fully masked at (384, 512, 64): zero output and gradients), a causal tail
-   tile at L = 255. Tolerances: output fp32 2e-5, bf16 2e-2 (absolute and
+5. K2/K3 ``flash_attention_fwd``/``_bwd`` in fp32 (the CUDA-core kernels)
+   and bf16 (the tensor-core kernels) at the training step's four shapes, one
+   D = 128 case and L = 2048 (``enc_max_seq_len`` as the joint encoder
+   reaches it), ragged key masks (one batch entry fully masked at
+   (384, 512, 64): zero output and gradients), a causal tail tile at
+   L = 255. Tolerances: output fp32 2e-5, bf16 2e-2 (absolute and
    relative); gradients 1e-4 (fp32) and 2e-2 (bf16) of the reference's
-   largest magnitude;
+   largest magnitude. One bf16 case runs K2 and K3 twice: o, lse, dq, dk, dv
+   bitwise equal (no atomics, a fixed order of sums);
 6. generation at full width (``slm_defaults()`` + ``vq_listener_defaults()``,
    random init from a seed, bf16): 25 synthetic clips of L=256, best-of-10
    through ``make_slmft_generator`` and ``evaluate_test_epoch`` with every
@@ -45,7 +48,10 @@ line):
 8. times after warmup: the median of 3 best-of-10 generate calls (host
    clock), the median per-launch time of each kernel at the main paths'
    shapes from CUDA events (for K1 self, the median over sweeps t = 0..255
-   of a sweep's mean launch), its plain version's, and one PyTorch library
+   of a sweep's mean launch; for K2/K3 and their library call, whose launch
+   costs the host more than the kernel costs the card, ten launches replayed
+   from a CUDA graph between the events, so the card alone is timed), its
+   plain version's, and one PyTorch library
    call on the same inputs where there is one (yardstick only, never on the
    port's path); the training step's median, and three steps under
    ``torch.profiler`` tracing the card only (device busy share of that
@@ -114,6 +120,36 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(start.elapsed_time(end) for start, end in pairs)
+
+
+def graph_ms(fn, stream=None, reps: int = 7, inner: int = 10) -> float:
+    """Median ms of one ``fn()`` on the card alone: ``inner`` calls are
+    captured into a CUDA graph and each of ``reps`` replays is timed between
+    its own pair of CUDA events, so the host's launch path, which can cost
+    more than a short kernel, is not in the number. ``stream`` is the capture
+    stream: autograd runs a backward on its forward's stream, so a captured
+    backward needs its forward made on that stream."""
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / inner
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
@@ -256,8 +292,11 @@ K23_CASES = (
     ("marginal joint (768,256,64) masked", 768, 256, 64, True, False, 4),
     ("decoder self (768,255,64) causal", 768, 255, 64, False, True, 4),
     ("D=128 (192,512,128) masked", 192, 512, 128, True, False, 0),
+    ("enc_max_seq_len (24,2048,64) masked", 24, 2048, 64, True, False, 0),
 )
-DEAD_CASE = 1  # index of the case with one fully masked batch entry
+DEAD_CASE = 1  # index of the case with one fully masked batch entry, run twice in bf16
+SOURCES = {torch.float32: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention.cu",
+           torch.bfloat16: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention_mma.cu"}
 
 
 def _attn_inputs(rows, l, d, dtype, g, masked, dead=False):
@@ -315,6 +354,13 @@ def k23_check():
             e_o.append(float(diff.max()))
             e_g.append(max(err_g))
             e_ga.append(err_ga)
+            if i == DEAD_CASE and dtype == torch.bfloat16:
+                again = (*flash_attention_fwd(q, k, v, mask, **kw),
+                         *flash_attention_bwd(q, k, v, ro, do, rlse, mask, **kw))
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip((o, lse, *grads), again)),
+                      f"K2/K3 {tag} {name}: a second call gives bitwise the same o, lse, "
+                      "dq, dk, dv")
         worst[tag] = {"fwd_abs": max(e_o), "bwd_rel": max(e_g), "bwd_abs": max(e_ga)}
     return worst
 
@@ -610,35 +656,55 @@ def train_timings(train):
         kw = dict(causal=causal, scale=d ** -0.5)
         o, lse = flash_attention_fwd(q, k, v, mask, **kw)
         b = rows // HEADS
-        q4, k4, v4 = (x.view(b, HEADS, l, d).detach().requires_grad_() for x in (q, k, v))
         m4 = None if mask is None else mask[:, None, None, :]
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q4, k4, v4, attn_mask=m4, is_causal=causal, scale=kw["scale"])
-        out4 = sdpa()
-        do4 = do.view_as(out4)
+
+        def sdpa_on_stream():
+            """SDPA's forward on leaves of its own, made on the current stream,
+            and its backward: autograd runs a backward on its forward's stream."""
+            q4, k4, v4 = (x.view(b, HEADS, l, d).detach().requires_grad_() for x in (q, k, v))
+            fwd_ = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, attn_mask=m4, is_causal=causal, scale=kw["scale"])
+            out4 = fwd_()
+            return fwd_, lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view_as(out4),
+                                                     retain_graph=True)
+
+        sdpa, sdpa_bwd = sdpa_on_stream()
+        side = torch.cuda.Stream()  # a second forward, for the captured backward
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _, sdpa_bwd_side = sdpa_on_stream()
+        torch.cuda.current_stream().wait_stream(side)
+        # ms and library_ms: single launches between events, the method of every
+        # other kernel here; graph_ms and library_graph_ms: the card alone
         fwd = dict(
             ms=cuda_ms(lambda i: flash_attention_fwd(q, k, v, mask, **kw), 20),
             plain_ms=cuda_ms(lambda i: flash_attention_fwd_plain(q, k, v, mask, **kw), 10),
-            library_ms=cuda_ms(lambda i: sdpa(), 20))
+            library_ms=cuda_ms(lambda i: sdpa(), 20),
+            graph_ms=graph_ms(lambda: flash_attention_fwd(q, k, v, mask, **kw)),
+            library_graph_ms=graph_ms(sdpa))
         fwd["bound_ms"], fwd["bound_by"] = _attn_bound(rows, l, d, bf, mask, causal, False)
         bwd = dict(
             ms=cuda_ms(lambda i: flash_attention_bwd(q, k, v, o, do, lse, mask, **kw), 20),
             plain_ms=cuda_ms(lambda i: flash_attention_bwd_plain(q, k, v, o, do, lse, mask,
                                                                  **kw), 10),
-            library_ms=cuda_ms(lambda i: torch.autograd.grad(out4, (q4, k4, v4), do4,
-                                                             retain_graph=True), 20))
+            library_ms=cuda_ms(lambda i: sdpa_bwd(), 20),
+            graph_ms=graph_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, mask, **kw)),
+            library_graph_ms=graph_ms(sdpa_bwd_side, stream=side))
         bwd["bound_ms"], bwd["bound_by"] = _attn_bound(rows, l, d, bf, mask, causal, True)
         cases[name] = {"per_step": per_step, "fwd": fwd, "bwd": bwd}
         for tag, r in (("K2", fwd), ("K3", bwd)):
             say(f"{tag} {name} bf16: kernel {r['ms'] * 1e3:.1f} us, plain "
                 f"{r['plain_ms'] * 1e3:.1f} us, SDPA {r['library_ms'] * 1e3:.1f} us, "
+                f"from a CUDA graph: kernel {r['graph_ms'] * 1e3:.1f} us, SDPA "
+                f"{r['library_graph_ms'] * 1e3:.1f} us, "
                 f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
-        del q, k, v, do, o, lse, q4, k4, v4, out4
+        del q, k, v, do, o, lse, sdpa, sdpa_bwd, sdpa_bwd_side
         torch.cuda.empty_cache()
     per_step = {}
     for which in ("fwd", "bwd"):
         per_step[which] = {key: sum(c["per_step"] * c[which][key] for c in cases.values())
-                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                           for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                       "graph_ms", "library_graph_ms")}
         say(f"{which} summed over a step's 20 launches: " + ", ".join(
             f"{key} {val:.3f}" for key, val in per_step[which].items()))
     return {"busy_share": windows["card"]["busy_share"], "windows": windows,
@@ -721,8 +787,8 @@ def timings(main):
 
 def _flash_entry(name, line, which, tt, k23, launches):
     cases = tt["cases"]
-    return {"name": name, "route": "cuda",
-            "source": "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention.cu",
+    return {"name": name, "route": "cuda", "source": SOURCES[torch.bfloat16],
+            "sources_by_dtype": {str(k).replace("torch.", ""): v for k, v in SOURCES.items()},
             "replaces": f"dyadic_interaction_modeling_tpu/ops/pallas/attention.py:{line}",
             "launches": launches[name],
             "launches_by_path": {"generate": 0, f"train_{TRAIN_STEPS}_steps": launches[name]},

@@ -23,6 +23,11 @@ int mask_div(const torch::Tensor& q, const c10::optional<torch::Tensor>& key_mas
   return key_mask ? (int)(q.size(0) / key_mask->size(0)) : 1;
 }
 
+// K2 and K3 have two sets of kernels, and this is where a call takes one:
+// bf16 the tensor-core kernels (flash_attention_mma.cu), fp32 the exact
+// CUDA-core kernels (flash_attention.cu).
+bool takes_mma(const torch::Tensor& q) { return q.scalar_type() == torch::kBFloat16; }
+
 torch::Tensor decode_attention(const torch::Tensor& q, const torch::Tensor& k,
                                const torch::Tensor& v,
                                const c10::optional<torch::Tensor>& key_mask,
@@ -48,11 +53,19 @@ std::vector<torch::Tensor> flash_attention_fwd(const torch::Tensor& q,
   const c10::cuda::CUDAGuard guard(q.device());
   auto o = torch::empty_like(q);
   auto lse = torch::empty({q.size(0), q.size(1)}, q.options().dtype(torch::kFloat));
-  C10_CUDA_CHECK(flash_attention_fwd_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr(key_mask), o.data_ptr(),
-      lse.data_ptr<float>(), (int)q.size(0), (int)q.size(1), (int)q.size(2),
-      mask_div(q, key_mask), causal, (float)scale, q.scalar_type() == torch::kBFloat16,
-      at::cuda::getCurrentCUDAStream()));
+  const int rows = (int)q.size(0), L = (int)q.size(1), D = (int)q.size(2);
+  const auto stream = at::cuda::getCurrentCUDAStream();
+  if (takes_mma(q))  // contiguous (rows, L, D): one head a row block
+    C10_CUDA_CHECK(flash_attention_mma_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr(key_mask), o.data_ptr(),
+        lse.data_ptr<float>(), rows, L, D, mask_div(q, key_mask), causal, (float)scale,
+        /*heads=*/1, /*batch_stride=*/(int64_t)L * D, /*head_stride=*/0,
+        /*row_stride=*/D, stream));
+  else
+    C10_CUDA_CHECK(flash_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr(key_mask), o.data_ptr(),
+        lse.data_ptr<float>(), rows, L, D, mask_div(q, key_mask), causal, (float)scale,
+        stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {o, lse};
 }
@@ -66,12 +79,21 @@ std::vector<torch::Tensor> flash_attention_bwd(
   auto dk = torch::empty_like(k);
   auto dv = torch::empty_like(v);
   auto delta = torch::empty_like(lse);
-  C10_CUDA_CHECK(flash_attention_bwd_launch(
-      q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-      lse.data_ptr<float>(), mask_ptr(key_mask), delta.data_ptr<float>(),
-      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), (int)q.size(0), (int)q.size(1),
-      (int)q.size(2), mask_div(q, key_mask), causal, (float)scale,
-      q.scalar_type() == torch::kBFloat16, at::cuda::getCurrentCUDAStream()));
+  const int rows = (int)q.size(0), L = (int)q.size(1), D = (int)q.size(2);
+  const auto stream = at::cuda::getCurrentCUDAStream();
+  if (takes_mma(q))
+    C10_CUDA_CHECK(flash_attention_mma_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr<float>(), mask_ptr(key_mask), delta.data_ptr<float>(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rows, L, D, mask_div(q, key_mask),
+        causal, (float)scale, /*heads=*/1, /*batch_stride=*/(int64_t)L * D,
+        /*head_stride=*/0, /*row_stride=*/D, stream));
+  else
+    C10_CUDA_CHECK(flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr<float>(), mask_ptr(key_mask), delta.data_ptr<float>(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rows, L, D, mask_div(q, key_mask),
+        causal, (float)scale, stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return {dq, dk, dv};
 }

@@ -1,22 +1,23 @@
-// Flash attention, forward (K2) and backward (K3), for Hopper (sm_90a).
+// Flash attention in fp32 on the CUDA cores, forward (K2) and backward (K3),
+// for Hopper (sm_90a). bf16 inputs take the tensor-core kernels of
+// flash_attention_mma.cu; the binding picks by dtype.
 //
 // Replaces the TPU kernels of dyadic_interaction_modeling_tpu/ops/pallas/
 // attention.py: `_fwd` (:111, body `_fwd_kernel` :47) and `_bwd` (:152, body
 // `_bwd_kernel` :70), the custom VJP of `flash_attention` (:194-210).
 //
-// Rows r = batch x head of (R, L, D) q, k, v, D in {64, 128}, fp32 or bf16.
-// The forward computes o = softmax(q k^T * scale) v under an optional causal
+// Rows r = batch x head of (R, L, D) q, k, v, D in {64, 128}, fp32. The
+// forward computes o = softmax(q k^T * scale) v under an optional causal
 // mask and a key mask (uint8, row r reads mask row r / mask_div) and saves
 // the row log-sum-exp in fp32. A query row whose keys are all masked gets
 // o = 0 and lse = +inf, so the backward turns its probabilities into exactly
 // 0 and its gradients are 0 (the dense path's rule; the Pallas kernel's
 // finite -1e30 mask returns the mean of v there instead).
 //
-// Bound on the H100: operations at L >= 256 in bf16 for the backward, bytes
-// for the forward (see chip_smoke.py for the numbers at the main path's
-// shapes). This first design computes on the CUDA cores in fp32, not on the
-// tensor cores, so it runs far above its bound; wgmma, TMA and warp
-// specialisation are later work.
+// Bound on the H100: operations (67 TFLOP/s of fp32 FMAs), since TF32 on the
+// tensor cores would not keep the 1e-5 agreement with the plain version that
+// the fp32 path exists for. The kernels are templates over the element type
+// and are instantiated for float alone.
 //
 // Design. Tiles of 64 query rows and 64 keys are staged in shared memory as
 // fp32 (rows padded to D + 1 floats against bank conflicts); 256 threads form
@@ -28,8 +29,7 @@
 // * Forward: one block per (row, query tile) loops over key tiles with an
 //   fp32 online softmax (running max, denominator, accumulator; one thread
 //   per query row rescales). Key tiles wholly above the diagonal are skipped
-//   when causal. P is rounded to v's dtype before P.V, as the dense path and
-//   the Pallas body do.
+//   when causal.
 // * Backward: the TPU kernel carried dk/dv across a sequential query-tile
 //   grid in one resident block; Hopper blocks run in parallel with nothing
 //   carried between them. So two deterministic passes, no atomics, both
@@ -38,7 +38,6 @@
 //     computes delta = rowsum(do * o) of its rows and writes it out;
 //   - dk/dv: one block per (row, key tile) loops over the query tiles at or
 //     below the diagonal, reading that delta.
-//   Sums are fp32; results are written in the input dtype.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -448,19 +447,12 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
 cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                        const uint8_t* mask, void* o, float* lse,
                                        int rows, int L, int D, int mask_div,
-                                       bool causal, float scale, bool bf16,
-                                       cudaStream_t stream) {
+                                       bool causal, float scale, cudaStream_t stream) {
   if (rows == 0 || L == 0) return cudaSuccess;
   if (D == 64)
-    return bf16 ? fwd<__nv_bfloat16, 64>(q, k, v, mask, o, lse, rows, L, mask_div,
-                                         causal, scale, stream)
-                : fwd<float, 64>(q, k, v, mask, o, lse, rows, L, mask_div, causal,
-                                 scale, stream);
+    return fwd<float, 64>(q, k, v, mask, o, lse, rows, L, mask_div, causal, scale, stream);
   if (D == 128)
-    return bf16 ? fwd<__nv_bfloat16, 128>(q, k, v, mask, o, lse, rows, L, mask_div,
-                                          causal, scale, stream)
-                : fwd<float, 128>(q, k, v, mask, o, lse, rows, L, mask_div, causal,
-                                  scale, stream);
+    return fwd<float, 128>(q, k, v, mask, o, lse, rows, L, mask_div, causal, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -469,18 +461,13 @@ cudaError_t flash_attention_bwd_launch(const void* q, const void* k, const void*
                                        const float* lse, const uint8_t* mask,
                                        float* delta, void* dq, void* dk, void* dv,
                                        int rows, int L, int D, int mask_div,
-                                       bool causal, float scale, bool bf16,
-                                       cudaStream_t stream) {
+                                       bool causal, float scale, cudaStream_t stream) {
   if (rows == 0 || L == 0) return cudaSuccess;
   if (D == 64)
-    return bf16 ? bwd<__nv_bfloat16, 64>(q, k, v, o, dout, lse, mask, delta, dq, dk,
-                                         dv, rows, L, mask_div, causal, scale, stream)
-                : bwd<float, 64>(q, k, v, o, dout, lse, mask, delta, dq, dk, dv,
-                                 rows, L, mask_div, causal, scale, stream);
+    return bwd<float, 64>(q, k, v, o, dout, lse, mask, delta, dq, dk, dv, rows, L,
+                          mask_div, causal, scale, stream);
   if (D == 128)
-    return bf16 ? bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse, mask, delta, dq, dk,
-                                          dv, rows, L, mask_div, causal, scale, stream)
-                : bwd<float, 128>(q, k, v, o, dout, lse, mask, delta, dq, dk, dv,
-                                  rows, L, mask_div, causal, scale, stream);
+    return bwd<float, 128>(q, k, v, o, dout, lse, mask, delta, dq, dk, dv, rows, L,
+                           mask_div, causal, scale, stream);
   return cudaErrorInvalidValue;
 }

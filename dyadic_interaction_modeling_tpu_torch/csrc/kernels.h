@@ -2,12 +2,16 @@
 // binding (binding.cpp), so the compiler holds both to one signature. Each
 // launcher enqueues its kernel on `stream` and does not synchronise; it
 // returns the status of its set-up (cudaSuccess when there is none), and the
-// caller checks the launch itself with cudaGetLastError().
+// caller checks the launch itself with cudaGetLastError(). The names have C
+// linkage, so one source built alone into a shared library (nvcc -shared) can
+// be driven through ctypes.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+extern "C" {
 
 // K1, decode_attention.cu. q (rows, nq, D), k and v (rows, L, D), out like q;
 // bf16 when `bf16`, else fp32. t_ptr (device int32) overrides t_val when not
@@ -19,25 +23,47 @@ cudaError_t decode_attention_launch(const void* q, const void* k, const void* v,
                                     int D, int mask_div, float scale, bool bf16,
                                     cudaStream_t stream);
 
-// K2, flash_attention.cu. q, k, v and o (rows, L, D), D in {64, 128}, bf16
-// when `bf16`, else fp32; lse (rows, L) fp32. mask as for K1 (null: none).
+// K2 in fp32, flash_attention.cu. q, k, v and o (rows, L, D) contiguous,
+// D in {64, 128}; lse (rows, L) fp32. mask as for K1 (null: none).
 cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                        const uint8_t* mask, void* o, float* lse,
                                        int rows, int L, int D, int mask_div,
-                                       bool causal, float scale, bool bf16,
-                                       cudaStream_t stream);
+                                       bool causal, float scale, cudaStream_t stream);
 
-// K3, flash_attention.cu. Inputs as K2's plus dout (like o); dq, dk, dv like
-// q; delta (rows, L) fp32 scratch. Two launches: dq (which also writes delta),
-// then dk/dv.
+// K3 in fp32, flash_attention.cu. Inputs as K2's plus dout (like o); dq, dk,
+// dv like q; delta (rows, L) fp32 scratch. Two launches: dq (which also
+// writes delta), then dk/dv.
 cudaError_t flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout,
                                        const float* lse, const uint8_t* mask,
                                        float* delta, void* dq, void* dk, void* dv,
                                        int rows, int L, int D, int mask_div,
-                                       bool causal, float scale, bool bf16,
-                                       cudaStream_t stream);
+                                       bool causal, float scale, cudaStream_t stream);
+
+// K2 and K3 in bf16 on the tensor cores, flash_attention_mma.cu. As the fp32
+// launchers, but the bf16 tensors of a call share one strided layout: row
+// block r = batch * heads + head starts at batch * batch_stride + head *
+// head_stride elements and its L rows are row_stride apart (all multiples of
+// 8). A contiguous (rows, L, D) tensor is heads = 1, batch_stride = L * D,
+// head_stride = 0, row_stride = D. lse and delta are contiguous (rows, L).
+cudaError_t flash_attention_mma_fwd_launch(const void* q, const void* k, const void* v,
+                                           const uint8_t* mask, void* o, float* lse,
+                                           int rows, int L, int D, int mask_div,
+                                           bool causal, float scale, int heads,
+                                           int64_t batch_stride, int64_t head_stride,
+                                           int64_t row_stride, cudaStream_t stream);
+
+cudaError_t flash_attention_mma_bwd_launch(const void* q, const void* k, const void* v,
+                                           const void* o, const void* dout,
+                                           const float* lse, const uint8_t* mask,
+                                           float* delta, void* dq, void* dk, void* dv,
+                                           int rows, int L, int D, int mask_div,
+                                           bool causal, float scale, int heads,
+                                           int64_t batch_stride, int64_t head_stride,
+                                           int64_t row_stride, cudaStream_t stream);
 
 // K4, vq_argmin.cu. z (n, d) and codebook (n_e, d) fp32 -> idx (n,) int32.
 cudaError_t vq_argmin_launch(const float* z, const float* codebook, int32_t* idx,
                              int n, int n_e, int d, cudaStream_t stream);
+
+}  // extern "C"

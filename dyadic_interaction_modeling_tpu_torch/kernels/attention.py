@@ -1,10 +1,13 @@
-"""K2/K3: flash attention forward and backward (``csrc/flash_attention.cu``)
-and their plain versions.
+"""K2/K3: flash attention forward and backward and their plain versions.
 
 Replaces ``dyadic_interaction_modeling_tpu/ops/pallas/attention.py``:
 ``_fwd`` (:111) and ``_bwd`` (:152), bound together by the custom VJP of
-``flash_attention`` (:194-213). See the CUDA source for the design and its
-bound.
+``flash_attention`` (:194-213). On the card bf16 tensors run the tensor-core
+kernels of ``csrc/flash_attention_mma.cu`` and fp32 tensors the exact
+CUDA-core kernels of ``csrc/flash_attention.cu`` (the binding picks by
+dtype); see the sources for the designs and their bounds. The bf16 backward
+rounds P and dS to bf16 as operands of its products, which the plain version
+keeps in fp32.
 
 Rows are batch x head: q, k, v are (R, L, D). A key mask is (R // m, L),
 True = attend, shared by m consecutive rows (m = heads), as K1 takes it. A
@@ -91,8 +94,6 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(name: str, q: torch.Tensor, tensors, key_mask) -> None:
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
     if q.dim() != 3 or q.shape[2] not in (64, 128):
         raise ValueError(f"{name}: q must be (R, L, D) with D in (64, 128), "
                          f"got {tuple(q.shape)}")
@@ -117,11 +118,14 @@ def _check(name: str, q: torch.Tensor, tensors, key_mask) -> None:
 
 
 def _dispatch(name: str, q: torch.Tensor) -> bool:
-    """True for the kernel (a CUDA tensor), False for the plain version (a
-    CPU tensor); any other device raises."""
-    if q.device.type in ("cuda", "cpu"):
-        return q.device.type == "cuda"
-    raise ValueError(f"{name}: unsupported device {q.device}")
+    """True for the kernels (a CUDA tensor), False for the plain version (a
+    CPU tensor); any other device, and any dtype but float32 and bfloat16 on
+    either, raises."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    return q.device.type == "cuda"
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

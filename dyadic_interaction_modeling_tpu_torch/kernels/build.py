@@ -2,7 +2,7 @@
 
 The sources in ``csrc/`` are the kernels (``*.cu``, plain CUDA C++ whose
 launchers ``kernels.h`` declares, with the device helpers of
-``tile_io.cuh``) and ``binding.cpp``, the one file that
+``tile_io.cuh`` and ``mma_tile.cuh``) and ``binding.cpp``, the one file that
 includes PyTorch's headers. One ``torch.utils.cpp_extension.load`` call
 compiles them all for ``sm_90a`` (Hopper), ninja running one compiler per
 source at once, at first use and never at import, into ``_build/`` beside
@@ -16,7 +16,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("binding.cpp", "decode_attention.cu", "flash_attention.cu", "vq_argmin.cu")
+SOURCES = ("binding.cpp", "decode_attention.cu", "flash_attention.cu",
+           "flash_attention_mma.cu", "vq_argmin.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _EXT = None

@@ -7,7 +7,9 @@ autograd through ``flash_attention``; a fully masked row; ``XAttention``'s
 flash route (a self-attention without an attn_mask) against its matmul
 route (the same attention given an all-True attn_mask). Tolerances:
 2e-5 for the forward and 1e-4 for gradients, fp32 on both sides, where only
-the order of the sums differs.
+the order of the sums differs. Then what the card's bf16 kernels do
+differently from the plain backward, rounding P and dS to bf16 as operands,
+held to the card's tolerance here; and the wrappers' dispatch by dtype.
 """
 
 import jax
@@ -18,6 +20,7 @@ import torch
 
 import dyadic_interaction_modeling_tpu.ops.pallas.attention as FA
 from dyadic_interaction_modeling_tpu_torch.kernels import LAUNCHES
+from dyadic_interaction_modeling_tpu_torch.kernels import attention as A
 from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
     flash_attention,
     flash_attention_bwd,
@@ -146,6 +149,69 @@ def test_fully_masked_row_gives_zero_output_and_gradients():
     dq, dk, dv = flash_attention_bwd(q, k, v, o.detach(), do, lse, mask, causal=False,
                                      scale=0.125)
     assert max(float(g[dead].abs().max()) for g in (dq, dk, dv)) == 0.0
+
+
+def _bwd_with_bf16_operands(q, k, v, o, do, lse, mask, causal, scale):
+    """``flash_attention_bwd_plain`` with P and dS rounded to bf16 before
+    their products, as the tensor-core kernels round them."""
+    s = A._scores(q, k, scale)
+    keep = A._keep(q, mask, causal)
+    if keep is not None:
+        s = s.masked_fill(~keep, -A.INF)
+    p = torch.exp(s - lse[..., None])
+    dof = do.float()
+    dv = torch.matmul(p.bfloat16().float().transpose(1, 2), dof)
+    dp = torch.matmul(dof, v.float().transpose(1, 2))
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).bfloat16().float()
+    return (torch.matmul(ds, k.float()).to(q.dtype),
+            torch.matmul(ds.transpose(1, 2), q.float()).to(k.dtype), dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("l,causal,masked", [(255, True, False), (200, False, True)])
+def test_bf16_operands_stay_inside_the_cards_gradient_tolerance(l, causal, masked):
+    """Why the card's bf16 tolerance (2e-2 of the largest magnitude) holds for
+    kernels that feed P and dS to the tensor cores in bf16: the rounding
+    moves the gradients by a few e-3, and a fully masked entry's stay 0."""
+    q, k, v, do, mask = _t(*_inputs(12, l, 64, masked, seed=l))
+    q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+    if masked:
+        mask[1] = False
+    o, lse = flash_attention_fwd_plain(q, k, v, mask, causal=causal, scale=0.125)
+    refs = flash_attention_bwd_plain(q, k, v, o, do, lse, mask, causal=causal, scale=0.125)
+    grads = _bwd_with_bf16_operands(q, k, v, o, do, lse, mask, causal, 0.125)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
+        assert a.dtype == torch.bfloat16
+        err = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert 0.0 < err <= 2e-2, (name, err)
+    if masked:
+        dead = slice(H, 2 * H)
+        assert max(float(g[dead].float().abs().max()) for g in grads) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensors_of_both_dtypes_reach_the_plain_version(dtype):
+    q, k, v, do, mask = _t(*_inputs(2, 70, 64, True, seed=13))
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    before = dict(LAUNCHES)
+    o, lse = flash_attention_fwd(q, k, v, mask, causal=True, scale=0.125)
+    ro, rlse = flash_attention_fwd_plain(q, k, v, mask, causal=True, scale=0.125)
+    assert o.dtype == dtype and torch.equal(o, ro) and torch.equal(lse, rlse)
+    grads = flash_attention_bwd(q, k, v, o, do, lse, mask, causal=True, scale=0.125)
+    refs = flash_attention_bwd_plain(q, k, v, o, do, lse, mask, causal=True, scale=0.125)
+    assert all(g.dtype == dtype and torch.equal(g, r) for g, r in zip(grads, refs))
+    assert torch.equal(flash_attention(q, k, v, mask, causal=True, scale=0.125), ro)
+    assert LAUNCHES == before
+
+
+def test_float16_raises_on_the_cpu_too():
+    q = torch.zeros(2, 8, 64, dtype=torch.float16)
+    lse = torch.zeros(2, 8)
+    for call in (lambda: flash_attention(q, q, q, scale=0.125),
+                 lambda: flash_attention_fwd(q, q, q, causal=False, scale=0.125),
+                 lambda: flash_attention_bwd(q, q, q, q, q, lse, causal=False, scale=0.125)):
+        with pytest.raises(ValueError, match="float32 or bfloat16, got torch.float16"):
+            call()
 
 
 def test_other_devices_raise():

@@ -75,6 +75,8 @@ def test_nearest_code_kernel_orders_nan_as_the_plain_version(cuda):
     (8, 200, 64, False, True),    # ragged tail, key mask, one dead batch entry
     (6, 255, 64, True, False),    # the decoder's causal self-attention
     (4, 130, 128, True, True),    # D = 128
+    (4, 129, 128, False, True),   # D = 128, a tail tile of one row
+    (4, 2048, 64, False, True),   # enc_max_seq_len as the joint encoder reaches it
 ])
 def test_flash_attention_kernels_match_plain(cuda, dtype, tol, rows, l, d, causal, masked):
     """K2 (o, lse) and K3 (dq, dk, dv) against their plain versions; errors
@@ -108,6 +110,26 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, tol, rows, l, d, causa
     if masked:
         assert float(o[2:4].float().abs().max()) == 0.0
         assert max(float(g[2:4].float().abs().max()) for g in grads) == 0.0
+
+
+def test_flash_attention_kernels_are_deterministic(cuda):
+    """No atomics and a fixed order of sums: two calls agree bitwise."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_fwd)
+
+    q, k, v, do = (torch.randn(8, 200, 64, device="cuda", generator=cuda).bfloat16()
+                   for _ in range(4))
+    mask = torch.rand(4, 200, device="cuda", generator=cuda) < 0.7
+    mask[1] = False
+
+    def run():
+        o, lse = flash_attention_fwd(q, k, v, mask, causal=True, scale=0.125)
+        return (o, lse, *flash_attention_bwd(q, k, v, o, do, lse, mask, causal=True,
+                                             scale=0.125))
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_attention_autograd_runs_the_kernels(cuda):
@@ -149,3 +171,5 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="key_mask"):
         flash_attention_fwd(x, x, x, torch.ones(3, 32, device="cuda", dtype=torch.bool),
                             causal=False, scale=0.1)
+    with pytest.raises(ValueError, match="torch.float16"):
+        flash_attention_fwd(x.half(), x.half(), x.half(), causal=False, scale=0.1)
