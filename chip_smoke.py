@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version, drive SLMFT best-of-10 listener generation
-and the SLM pretraining step at full width, and time it all.
+(multi-head and grouped-query) and the SLM pretraining step at full width,
+and time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -12,11 +13,15 @@ line):
 2. build: ``torch.utils.cpp_extension.load`` of every source in ``csrc/``
    (sm_90a), timed;
 3. K4 ``nearest_code`` at (6400, 128) x (512, 128) fp32: exact indices on
-   inputs with a margin, >= 99.9% agreement on plain random inputs;
+   inputs with a margin, >= 99.9% agreement on plain random inputs, a NaN
+   latent gets code 0; the same at the training step's (8192, 128) and at
+   N and n_e that are not multiples of the kernel's tiles;
 4. K1 ``decode_attention`` in fp32 (tolerance 1e-5) and bf16 (2e-2): the
-   self case (3000, 1, 64) x L=256 at several t (Python int and device
-   tensor), the cross case (300, 10, 64) with a key mask holding one fully
-   masked row, and a GQA case with NQ = G = 4 under a t bound;
+   self case (3000, 1, 64) x L=256, MQA self (250, 12, 64) and GQA
+   (750, 4, 64) at t on both sides of every key-split boundary (Python int
+   and device tensor); cross (300, 10, 64) and MQA cross (25, 120, 64) with
+   a key mask holding one fully masked row (exactly 0), and in bf16 three
+   more calls bitwise equal to the first;
 5. K2/K3 ``flash_attention_fwd``/``_bwd`` in fp32 (the CUDA-core kernels)
    and bf16 (the tensor-core kernels) at the training step's four shapes, one
    D = 128 case and L = 2048 (``enc_max_seq_len`` as the joint encoder
@@ -34,7 +39,12 @@ line):
    through ``decode_step`` with the kernels and with the plain versions
    (``plain_attention``; logits within 1e-3), and the VQ codes on the card
    against the CPU's;
-7. training at full width: SLM, fp32 parameters under bf16 autocast, AdamW
+7. times of generation and of K1/K4 (below), then grouped-query generation:
+   the same with ``attn_kv_heads=1`` (one K/V head; cross attention folds
+   G = 12 heads x N = 10 samples into NQ = 120 query rows), one generate
+   call with the same launch counts, then its fp32 teacher-forced check at
+   B0=2, N=10;
+8. training at full width: SLM, fp32 parameters under bf16 autocast, AdamW
    (1e-5, weight decay 0.01) with clip 1.0 and the VQ encoders and
    quantizers frozen, 32 synthetic CANDOR clips of L=256 (``bench.py:54``):
    3 warmup steps, then 10 steps, each between its own pair of CUDA events,
@@ -45,15 +55,16 @@ line):
    plain versions on the card (equal VQ codes, losses within 1e-5 relative,
    gradients of the non-VQ leaves within 1e-3 of each leaf's largest
    magnitude);
-8. times after warmup: the median of 3 best-of-10 generate calls (host
-   clock), the median per-launch time of each kernel at the main paths'
-   shapes from CUDA events (for K1 self, the median over sweeps t = 0..255
-   of a sweep's mean launch; for K2/K3 and their library call, whose launch
-   costs the host more than the kernel costs the card, ten launches replayed
-   from a CUDA graph between the events, so the card alone is timed), its
-   plain version's, and one PyTorch library
-   call on the same inputs where there is one (yardstick only, never on the
-   port's path); the training step's median, and three steps under
+9. times after warmup: the median of 3 best-of-10 generate calls (host
+   clock); for each kernel at the main paths' shapes, its plain version and
+   one PyTorch library call on the same inputs where there is one
+   (yardstick only, never on the port's path): ``ms``, the median of single
+   launches each between its own pair of CUDA events (for K1 self, the
+   median over sweeps t = 0..255 of a sweep's mean launch), which also
+   times the host's path to the launch; ``graph_ms``, the same launches
+   replayed from a CUDA graph between a pair of events, the card alone
+   (K1 self, cross and MQA cross, K4, K2/K3, and SDPA beside K1-K3 as
+   ``library_graph_ms``); the training step's median, and three steps under
    ``torch.profiler`` tracing the card only (device busy share of that
    window, top device kernels); then the ``kernels`` JSON line and, last,
    the device JSON line.
@@ -226,10 +237,24 @@ def k4_check():
     got = nearest_code(zn, e)
     check(bool((got == nearest_code_plain(zn, e)).all()) and int(got[5]) == 0,
           "K4 NaN latent: code 0, other rows as the plain version")
+    # ragged N and n_e against the 64 x 128 block tile, and the training step's shape
+    for n, n_e, d in ((8192, 512, 128), (6401, 500, 128), (70, 130, 20)):
+        e = torch.randn(n_e, d, device="cuda", generator=g)
+        want = torch.randint(0, n_e, (n,), device="cuda", generator=g)
+        z = e[want] + 0.01 * torch.randn(n, d, device="cuda", generator=g)
+        got = nearest_code(z, e)
+        exact = bool((got == want.int()).all()) and bool((nearest_code_plain(z, e) == got).all())
+        z = torch.randn(n, d, device="cuda", generator=g)
+        a = float((nearest_code(z, e) == nearest_code_plain(z, e)).float().mean())
+        check(exact and a >= 0.999, f"K4 ({n}, {d}) x ({n_e}, {d}): exact on margin "
+              f"inputs {exact}, {a:.5f} of random rows agree (>= 0.999)")
+        agree = min(agree, a)
     return {"max_abs_err": gap, "agree": agree}
 
 
-def _k1_inputs(rows, nq, dtype, g, masked=False, n_sets=1):
+def _k1_inputs(rows, nq, dtype, g, masked=False, n_sets=1, group=12):
+    """q, k, v at L and, with ``masked``, a (rows // group, L) key mask whose
+    row 3 is fully masked (cache rows [3 group, 4 group))."""
     sets = []
     for _ in range(n_sets):
         q = torch.randn(rows, nq, 64, device="cuda", generator=g).to(dtype)
@@ -237,11 +262,15 @@ def _k1_inputs(rows, nq, dtype, g, masked=False, n_sets=1):
         v = torch.randn(rows, L, 64, device="cuda", generator=g).to(dtype)
         mask = None
         if masked:
-            mask = torch.rand(rows // 12, L, device="cuda", generator=g) < 0.8
+            mask = torch.rand(rows // group, L, device="cuda", generator=g) < 0.8
             mask[:, 0] = True
             mask[3] = False  # one fully masked context row
         sets.append((q, k, v, mask))
     return sets
+
+
+# t on both sides of the key splits' boundaries (chunks of 16, 32 or 64 keys)
+SPLIT_TS = (0, 1, 15, 16, 31, 32, 63, 64, 127, 128, 191, 192, 200, 255)
 
 
 @phase
@@ -251,34 +280,42 @@ def k1_check():
 
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = {}
+
+    def err(out, ref):
+        return float((out.float() - ref.float()).abs().max())
+
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         tag = str(dtype).replace("torch.", "")
         errs = []
-        (q, k, v, _), = _k1_inputs(3000, 1, dtype, g)
-        for t in (0, 1, 63, 64, 127, 200, 255):
-            for tt in (t, torch.tensor(t, dtype=torch.int32, device="cuda")):
-                out = decode_attention(q, k, v, tt, scale=0.125)
+        # (name, rows, NQ): self, MQA self (G = 12), GQA (G = 4), under t bounds
+        for name, rows, nq in (("self", 3000, 1), ("MQA self", 250, 12), ("GQA", 750, 4)):
+            (q, k, v, _), = _k1_inputs(rows, nq, dtype, g)
+            e = 0.0
+            for t in SPLIT_TS:
                 ref = decode_attention_plain(q, k, v, t, scale=0.125)
-                errs.append(float((out.float() - ref.float()).abs().max()))
-        check(max(errs) <= tol, f"K1 self {tag} (3000,1,64) L=256 t in 0..255: "
-              f"max abs err {max(errs):.3g} (tol {tol})")
-        (q, k, v, mask), = _k1_inputs(300, 10, dtype, g, masked=True)
-        out = decode_attention(q, k, v, None, mask, scale=0.125)
-        ref = decode_attention_plain(q, k, v, None, mask, scale=0.125)
-        err_c = float((out.float() - ref.float()).abs().max())
-        zero = float(out[3 * 12:4 * 12].float().abs().max())
-        check(err_c <= tol and zero == 0.0,
-              f"K1 cross {tag} (300,10,64) masked, one fully masked row: max abs "
-              f"err {err_c:.3g} (tol {tol}), masked row max {zero}")
-        (q, k, v, _), = _k1_inputs(750, 4, dtype, g)
-        err_g = 0.0
-        for t in (0, 37, 255):
-            out = decode_attention(q, k, v, t, scale=0.125)
-            ref = decode_attention_plain(q, k, v, t, scale=0.125)
-            err_g = max(err_g, float((out.float() - ref.float()).abs().max()))
-        check(err_g <= tol, f"K1 GQA {tag} (750,4,64) t in (0,37,255): max abs err "
-              f"{err_g:.3g} (tol {tol})")
-        worst[tag] = max(errs + [err_c, err_g])
+                for tt in (t, torch.tensor(t, dtype=torch.int32, device="cuda")):
+                    e = max(e, err(decode_attention(q, k, v, tt, scale=0.125), ref))
+            check(e <= tol, f"K1 {name} {tag} ({rows},{nq},64) L=256, t in {SPLIT_TS} as "
+                  f"int and device tensor: max abs err {e:.3g} (tol {tol})")
+            errs.append(e)
+        # cross attention with a key mask holding one fully masked context row:
+        # best-of-10 (300, 10) and MQA best-of-10 (25, 120)
+        for name, rows, nq, group in (("cross", 300, 10, 12), ("MQA cross", 25, 120, 1)):
+            (q, k, v, mask), = _k1_inputs(rows, nq, dtype, g, masked=True, group=group)
+            out = decode_attention(q, k, v, None, mask, scale=0.125)
+            e = err(out, decode_attention_plain(q, k, v, None, mask, scale=0.125))
+            zero = float(out[3 * group:4 * group].float().abs().max())
+            same = True
+            if dtype == torch.bfloat16:
+                same = all(torch.equal(out, decode_attention(q, k, v, None, mask, scale=0.125))
+                           for _ in range(3))
+            check(e <= tol and zero == 0.0 and same,
+                  f"K1 {name} {tag} ({rows},{nq},64) masked, one fully masked row: max abs "
+                  f"err {e:.3g} (tol {tol}), masked row max {zero}"
+                  + (f", three more calls bitwise equal: {same}" if dtype == torch.bfloat16
+                     else ""))
+            errs.append(e)
+        worst[tag] = max(errs)
     torch.cuda.synchronize()
     return worst
 
@@ -365,12 +402,14 @@ def k23_check():
     return worst
 
 
-def _model(dtype, seed=0):
+def _model(dtype, seed=0, kv_heads=0):
+    """SLMFT at full width; ``kv_heads`` = 1 is grouped-query (MQA) attention."""
     from dyadic_interaction_modeling_tpu_torch.config import (
         slm_defaults, vq_listener_defaults)
     from dyadic_interaction_modeling_tpu_torch.models.slm import SLMFT
 
     slm_cfg, vq_cfg = slm_defaults(), vq_listener_defaults()
+    slm_cfg["attn_kv_heads"] = kv_heads
     torch.manual_seed(seed)
     model = SLMFT(slm_cfg, vq_cfg)
     return model, slm_cfg
@@ -386,14 +425,15 @@ def _clips(n_clips, seed=3):
             for c in PaddedBatchLoader(ds, n_clips, shuffle=False)]
 
 
-@phase
-def slice_main_path():
+def _generate(kv_heads):
+    """Best-of-N generation of B0 clips, every launch count set to 0 just
+    before and read just after."""
     from dyadic_interaction_modeling_tpu_torch import kernels
     from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import (
         evaluate_test_epoch, make_slmft_generator)
     from dyadic_interaction_modeling_tpu_torch.metrics.reporting import print_metrics
 
-    model, slm_cfg = _model(torch.bfloat16)
+    model, slm_cfg = _model(torch.bfloat16, kv_heads=kv_heads)
     model = model.to("cuda", torch.bfloat16).eval()
     gen = make_slmft_generator(model)
     batches = _clips(B0)
@@ -410,40 +450,54 @@ def slice_main_path():
                                                 beam_size=N, device="cuda")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    say(f"launches in the best-of-{N} run: {launches}")
+    tag = "MQA (attn_kv_heads=1) " if kv_heads else ""
+    say(f"launches in the {tag}best-of-{N} run: {launches}")
     cands, tokens = seen["cands"], seen["tokens"]
     check(tuple(cands.shape) == (B0, N, L - 1, 56),
-          f"candidate shape {tuple(cands.shape)} == {(B0, N, L - 1, 56)}")
-    check(bool(torch.isfinite(cands.float()).all()), "candidates finite")
-    check(bool(((tokens >= 0) & (tokens < 512)).all()), "tokens in [0, 512)")
+          f"{tag}candidate shape {tuple(cands.shape)} == {(B0, N, L - 1, 56)}")
+    check(bool(torch.isfinite(cands.float()).all()), f"{tag}candidates finite")
+    check(bool(((tokens >= 0) & (tokens < 512)).all()), f"{tag}tokens in [0, 512)")
     want = {"decode_attention": (L - 1) * 4 * 2, "flash_attention_fwd": 0,
             "flash_attention_bwd": 0, "nearest_code": 2}
-    check(launches == want, f"generation launches {launches} == {want} (K1 self and "
+    check(launches == want, f"{tag}generation launches {launches} == {want} (K1 self and "
           "cross in 4 decoder layers x 255 steps, K4 twice, no K2/K3)")
     m = print_metrics(y_true, y_pred, xs, verbose=False)
     fd = [m[k] for k in ("fid_pose", "fid_exp", "mse_pose", "mse_exp")]
     check(all(v == v and abs(v) != float("inf") for v in fd),
-          f"FD and MSE finite: fid_pose {m['fid_pose']:.4f} fid_exp {m['fid_exp']:.4f}")
+          f"{tag}FD and MSE finite: fid_pose {m['fid_pose']:.4f} fid_exp {m['fid_exp']:.4f}")
     return model, gen, batches[0], launches
 
 
 @phase
-def slice_reference():
-    """fp32 at B0=4, N=2: kernels vs plain versions on the card, and the card's
-    VQ codes against the CPU's."""
+def slice_main_path():
+    return _generate(kv_heads=0)
+
+
+@phase
+def mqa_main_path():
+    """Grouped-query generation (one K/V head: step_cross folds G = 12 heads
+    x N = 10 samples into NQ = 120 query rows a context), one generate call."""
+    launches = _generate(kv_heads=1)[3]
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _reference(b0, n, kv_heads):
+    """fp32 at B0 clips x N samples: kernels vs plain versions on the card,
+    and the card's VQ codes against the CPU's."""
     from dyadic_interaction_modeling_tpu_torch.models.xtrans import init_decoder_cache
 
-    b0, n = 4, 2
-    cpu_model, _ = _model(torch.float32, seed=1)
+    tag = f"{'MQA ' if kv_heads else ''}B0={b0} N={n}"
+    cpu_model, _ = _model(torch.float32, seed=1, kv_heads=kv_heads)
     cpu_model.eval()
-    model = _model(torch.float32, seed=1)[0].to("cuda").eval()
+    model = _model(torch.float32, seed=1, kv_heads=kv_heads)[0].to("cuda").eval()
     batch = _clips(b0, seed=5)[0]
     src_v, tgt, src_a, mask = (torch.as_tensor(x) for x in batch[:4])
     with torch.no_grad():
         codes_cpu = cpu_model.forward_vq(src_v, tgt, mask)[1]
         codes_gpu = model.forward_vq(src_v.cuda(), tgt.cuda(), mask.cuda())[1].cpu()
         same = float((codes_cpu == codes_gpu).float().mean())
-        check(same >= 0.99, f"listener VQ codes, card (K4) vs CPU (plain): "
+        check(same >= 0.99, f"{tag} listener VQ codes, card (K4) vs CPU (plain): "
               f"{same:.4f} equal (>= 0.99)")
         ctx, prompt = model.encode_context(src_v.cuda(), tgt.cuda(), src_a.cuda(),
                                            mask.cuda())
@@ -463,9 +517,20 @@ def slice_reference():
             with plain_attention():
                 b = dec.decode_step(tok, caches[1], t, cross, maskc, n)
             worst = max(worst, float((a - b).abs().max()))
-    check(worst <= 1e-3, f"teacher-forced decode_step fp32 B0={b0} N={n}, {L} steps: "
+    check(worst <= 1e-3, f"teacher-forced decode_step fp32 {tag}, {L} steps: "
           f"logits max abs err kernel vs plain {worst:.3g} (tol 1e-3)")
     return worst
+
+
+@phase
+def slice_reference():
+    return _reference(4, 2, kv_heads=0)
+
+
+@phase
+def mqa_reference():
+    """Cross attention at NQ = G x N = 120 query rows a context."""
+    return _reference(2, N, kv_heads=1)
 
 
 TRAIN_B, TRAIN_STEPS, WARMUP_STEPS, PROFILED_STEPS = 32, 10, 3, 3
@@ -738,6 +803,9 @@ def timings(main):
     g = torch.Generator(device="cuda").manual_seed(5)
     bf = torch.bfloat16
     out = {}
+    # ms: single launches between CUDA events (a K1 self sweep t = 0..255
+    # between a pair, / 256), which also times the host's path to the launch;
+    # graph_ms: the same launches replayed from a CUDA graph, the card alone
     # K1 self: the mean launch of a generate is the sweep t = 0..255 (4 input
     # sets, one per decoder layer, so the 196 MB caches do not sit in L2)
     sets = _k1_inputs(3000, 1, bf, g, n_sets=4)
@@ -745,42 +813,57 @@ def timings(main):
     ops = sum(4 * 3000 * 64 * (t + 1) for t in range(L)) / L
 
     def sweep(fn):
-        return lambda i: [fn(*sets[(i + t) % 4][:3], t) for t in range(L)]
+        return lambda i=0: [fn(*sets[(i + t) % 4][:3], t) for t in range(L)]
 
-    ms = cuda_ms(sweep(lambda q, k, v, t: decode_attention(q, k, v, t, scale=0.125)), 7) / L
-    pl = cuda_ms(sweep(lambda q, k, v, t: decode_attention_plain(q, k, v, t, scale=0.125)), 3) / L
-    lib = cuda_ms(sweep(lambda q, k, v, t: F.scaled_dot_product_attention(
-        q[:, None], k[:, None, : t + 1], v[:, None, : t + 1], scale=0.125)), 7) / L
-    bms, by = bound_ms(nbytes, ops, bf)
-    out["self"] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=bms, bound_by=by)
+    kern = sweep(lambda q, k, v, t: decode_attention(q, k, v, t, scale=0.125))
+    plain = sweep(lambda q, k, v, t: decode_attention_plain(q, k, v, t, scale=0.125))
+    sdpa = sweep(lambda q, k, v, t: F.scaled_dot_product_attention(
+        q[:, None], k[:, None, : t + 1], v[:, None, : t + 1], scale=0.125))
+    out["self"] = dict(ms=cuda_ms(kern, 7) / L, plain_ms=cuda_ms(plain, 3) / L,
+                       library_ms=cuda_ms(sdpa, 7) / L, graph_ms=graph_ms(kern, inner=1) / L,
+                       library_graph_ms=graph_ms(sdpa, inner=1) / L)
+    out["self"]["bound_ms"], out["self"]["bound_by"] = bound_ms(nbytes, ops, bf)
     del sets
-    # K1 cross: (300, 10, 64) against the full L=256 context, key mask
-    sets = _k1_inputs(300, 10, bf, g, masked=True, n_sets=4)
-    nbytes = 300 * L * 64 * 2 * 2 + 2 * 300 * 10 * 64 * 2 + 25 * L
-    ops = 4 * 300 * 10 * L * 64
-    ms = cuda_ms(lambda i: decode_attention(*sets[i % 4][:3], None, sets[i % 4][3],
-                                            scale=0.125), 200)
-    pl = cuda_ms(lambda i: decode_attention_plain(*sets[i % 4][:3], None, sets[i % 4][3],
-                                                  scale=0.125), 50)
-    masks4 = [s[3].repeat_interleave(12, 0)[:, None, None, :] for s in sets]
-    lib = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        sets[i % 4][0][:, None], sets[i % 4][1][:, None], sets[i % 4][2][:, None],
-        attn_mask=masks4[i % 4], scale=0.125), 200)
-    bms, by = bound_ms(nbytes, ops, bf)
-    out["cross"] = dict(ms=ms, plain_ms=pl, library_ms=lib, bound_ms=bms, bound_by=by)
-    del sets
+    # K1 cross: (300, 10, 64) and MQA cross (25, 120, 64) against the full
+    # L=256 context, key mask
+    for name, rows, nq, group in (("cross", 300, 10, 12), ("mqa_cross", 25, 120, 1)):
+        sets = _k1_inputs(rows, nq, bf, g, masked=True, n_sets=4, group=group)
+        nbytes = rows * L * 64 * 2 * 2 + 2 * rows * nq * 64 * 2 + (rows // group) * L
+        masks4 = [s[3].repeat_interleave(group, 0)[:, None, None, :] for s in sets]
+
+        def kern(i=0, sets=sets):
+            return decode_attention(*sets[i % 4][:3], None, sets[i % 4][3], scale=0.125)
+
+        def plain(i=0, sets=sets):
+            return decode_attention_plain(*sets[i % 4][:3], None, sets[i % 4][3], scale=0.125)
+
+        def sdpa(i=0, sets=sets, masks4=masks4):
+            return F.scaled_dot_product_attention(
+                sets[i % 4][0][:, None], sets[i % 4][1][:, None], sets[i % 4][2][:, None],
+                attn_mask=masks4[i % 4], scale=0.125)
+
+        r = dict(ms=cuda_ms(kern, 200), plain_ms=cuda_ms(plain, 50),
+                 library_ms=cuda_ms(sdpa, 200),
+                 graph_ms=graph_ms(lambda: [kern(i) for i in range(4)]) / 4,
+                 library_graph_ms=graph_ms(lambda: [sdpa(i) for i in range(4)]) / 4)
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 4 * rows * nq * L * 64, bf)
+        out[name] = r
+        del sets, masks4
     # K4: (6400, 128) latents x (512, 128) codebook, fp32
     z = torch.randn(6400, 128, device="cuda", generator=g)
     e = torch.randn(512, 128, device="cuda", generator=g)
-    ms = cuda_ms(lambda i: nearest_code(z, e), 200)
-    pl = cuda_ms(lambda i: nearest_code_plain(z, e), 200)
-    bms, by = bound_ms(6400 * 128 * 4 + 512 * 128 * 4 + 6400 * 4,
-                       2 * 6400 * 512 * 128, torch.float32)
-    out["vq"] = dict(ms=ms, plain_ms=pl, library_ms=None, bound_ms=bms, bound_by=by)
+    r = dict(ms=cuda_ms(lambda i: nearest_code(z, e), 200),
+             plain_ms=cuda_ms(lambda i: nearest_code_plain(z, e), 200), library_ms=None,
+             graph_ms=graph_ms(lambda: nearest_code(z, e)), library_graph_ms=None)
+    r["bound_ms"], r["bound_by"] = bound_ms(6400 * 128 * 4 + 512 * 128 * 4 + 6400 * 4,
+                                            2 * 6400 * 512 * 128, torch.float32)
+    out["vq"] = r
     for name, r in out.items():
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
-        say(f"{name:5s}: kernel {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, "
-            f"library {lib}, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+        lib = ("n/a" if r["library_ms"] is None else
+               f"{r['library_ms'] * 1e3:.2f} us (graph {r['library_graph_ms'] * 1e3:.2f} us)")
+        say(f"{name:9s}: kernel {r['ms'] * 1e3:.2f} us (graph {r['graph_ms'] * 1e3:.2f} us), "
+            f"plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, "
+            f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
     return {"generate_ms": med * 1e3, "generate_runs_ms": [t * 1e3 for t in times],
             **out}
 
@@ -800,10 +883,11 @@ def _flash_entry(name, line, which, tt, k23, launches):
             "cases": {k: c[which] for k, c in cases.items()}, "max_err": k23}
 
 
-def kernels_line(gen_launches, train, k4, k1, k23, t, tt, build_s):
+def kernels_line(gen_launches, mqa_launches, train, k4, k1, k23, t, tt, build_s):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
+                        "library_graph_ms")}
     tl = train["launches"]
     return {"kernels": [
         {"name": "decode_attention", "route": "cuda",
@@ -811,10 +895,12 @@ def kernels_line(gen_launches, train, k4, k1, k23, t, tt, build_s):
          "replaces": "dyadic_interaction_modeling_tpu/ops/pallas/decode.py:129",
          "launches": gen_launches["decode_attention"],
          "launches_by_path": {"generate": gen_launches["decode_attention"],
+                              "generate_mqa": mqa_launches["decode_attention"],
                               f"train_{TRAIN_STEPS}_steps": tl["decode_attention"]},
          "max_abs_err": k1["bfloat16"], **mean, "bound_by": "bytes",
          "cases": {"self (3000,1,64) L=256 t=0..255 bf16": self_,
                    "cross (300,10,64) L=256 masked bf16": cross,
+                   "MQA cross (25,120,64) L=256 masked bf16": t["mqa_cross"],
                    "max_abs_err": k1}},
         _flash_entry("flash_attention_fwd", 111, "fwd", tt, k23, tl),
         _flash_entry("flash_attention_bwd", 152, "bwd", tt, k23, tl),
@@ -823,6 +909,7 @@ def kernels_line(gen_launches, train, k4, k1, k23, t, tt, build_s):
          "replaces": "dyadic_interaction_modeling_tpu/ops/pallas/vq.py:49",
          "launches": gen_launches["nearest_code"] + tl["nearest_code"],
          "launches_by_path": {"generate": gen_launches["nearest_code"],
+                              "generate_mqa": mqa_launches["nearest_code"],
                               f"train_{TRAIN_STEPS}_steps": tl["nearest_code"]},
          "max_abs_err": k4["max_abs_err"], **t["vq"], "agree": k4["agree"]},
     ], "generate_ms": t["generate_ms"], "generate_runs_ms": t["generate_runs_ms"],
@@ -853,13 +940,17 @@ def main() -> int:
     gen_launches = main_run[3] if main_run else None
     del main_run
     torch.cuda.empty_cache()
+    mqa_launches = mqa_main_path()
+    mqa_ref = mqa_reference()
     train = train_main_path()
     train_ref = train_reference()
     tt = train_timings(train) if train else None
-    if FAILURES or None in (smi, build_s, k4, k1, k23, t, train, train_ref, tt):
+    if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_ref, train,
+                            train_ref, tt):
         say(f"FAILED: {FAILURES}")
         return 1
-    say(json.dumps(kernels_line(gen_launches, train, k4, k1, k23, t, tt, build_s)))
+    say(json.dumps(kernels_line(gen_launches, mqa_launches, train, k4, k1, k23, t, tt,
+                                build_s)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

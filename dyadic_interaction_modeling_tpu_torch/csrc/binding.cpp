@@ -28,6 +28,18 @@ int mask_div(const torch::Tensor& q, const c10::optional<torch::Tensor>& key_mas
 // CUDA-core kernels (flash_attention.cu).
 bool takes_mma(const torch::Tensor& q) { return q.scalar_type() == torch::kBFloat16; }
 
+// K1's arrival counters, one buffer a device: zero when made, and every
+// launch leaves the counters it used at zero, so a call needs no memset.
+int* decode_counters(const torch::Tensor& q, int64_t n) {
+  static auto* by_device = new std::vector<torch::Tensor>();  // never freed
+  const size_t dev = (size_t)q.get_device();
+  if (by_device->size() <= dev) by_device->resize(dev + 1);
+  torch::Tensor& buf = (*by_device)[dev];
+  if (!buf.defined() || buf.numel() < n)
+    buf = torch::zeros({std::max<int64_t>(n, 4096)}, q.options().dtype(torch::kInt));
+  return buf.data_ptr<int>();
+}
+
 torch::Tensor decode_attention(const torch::Tensor& q, const torch::Tensor& k,
                                const torch::Tensor& v,
                                const c10::optional<torch::Tensor>& key_mask,
@@ -35,11 +47,18 @@ torch::Tensor decode_attention(const torch::Tensor& q, const torch::Tensor& k,
                                double scale) {
   const c10::cuda::CUDAGuard guard(q.device());
   auto out = torch::empty_like(q);
+  const int rows = (int)q.size(0), nq = (int)q.size(1), L = (int)k.size(1),
+            D = (int)q.size(2);
+  const bool bf16 = q.scalar_type() == torch::kBFloat16;
+  int64_t n_part = 0, n_count = 0;
+  decode_attention_scratch(rows, nq, L, D, (int)t_val, t.has_value(), bf16, &n_part,
+                           &n_count);
+  auto part = torch::empty({n_part}, q.options().dtype(torch::kFloat));
   C10_CUDA_CHECK(decode_attention_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr(key_mask),
-      t ? t->data_ptr<int32_t>() : nullptr, (int)t_val, out.data_ptr(), (int)q.size(0),
-      (int)q.size(1), (int)k.size(1), (int)q.size(2), mask_div(q, key_mask),
-      (float)scale, q.scalar_type() == torch::kBFloat16,
+      t ? t->data_ptr<int32_t>() : nullptr, (int)t_val, out.data_ptr(),
+      n_part ? part.data_ptr<float>() : nullptr, n_count ? decode_counters(q, n_count) : nullptr,
+      rows, nq, L, D, mask_div(q, key_mask), (float)scale, bf16,
       at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
@@ -98,15 +117,20 @@ std::vector<torch::Tensor> flash_attention_bwd(
   return {dq, dk, dv};
 }
 
+// K4's result: the low words of its 64-bit (distance, index) keys, which the
+// kernel merges by atomicMin from all ones.
 torch::Tensor vq_argmin(const torch::Tensor& z, const torch::Tensor& codebook) {
   const c10::cuda::CUDAGuard guard(z.device());
-  auto idx = torch::empty({z.size(0)}, z.options().dtype(torch::kInt));
-  C10_CUDA_CHECK(vq_argmin_launch(z.data_ptr<float>(), codebook.data_ptr<float>(),
-                                  idx.data_ptr<int32_t>(), (int)z.size(0),
-                                  (int)codebook.size(0), (int)z.size(1),
-                                  at::cuda::getCurrentCUDAStream()));
+  const int64_t n = z.size(0);
+  auto keys = torch::empty({n}, z.options().dtype(torch::kLong));
+  const auto stream = at::cuda::getCurrentCUDAStream();
+  C10_CUDA_CHECK(cudaMemsetAsync(keys.data_ptr(), 0xff, n * sizeof(int64_t), stream));
+  C10_CUDA_CHECK(vq_argmin_launch(
+      z.data_ptr<float>(), codebook.data_ptr<float>(),
+      reinterpret_cast<unsigned long long*>(keys.data_ptr<int64_t>()), (int)n,
+      (int)codebook.size(0), (int)z.size(1), stream));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-  return idx;
+  return keys.view(torch::kInt).view({n, 2}).select(1, 0);  // little-endian low words
 }
 
 }  // namespace

@@ -14,14 +14,22 @@
 extern "C" {
 
 // K1, decode_attention.cu. q (rows, nq, D), k and v (rows, L, D), out like q;
-// bf16 when `bf16`, else fp32. t_ptr (device int32) overrides t_val when not
-// null; an unbounded call passes L - 1. mask (uint8, rows / mask_div rows of
-// L) may be null; cache row r reads mask row r / mask_div.
+// bf16 when `bf16`, else fp32; D in {64, 128}, nq <= DECODE_MAX_NQ. t_ptr
+// (device int32) overrides t_val when not null; an unbounded call passes
+// L - 1. mask (uint8, rows / mask_div rows of L) may be null; cache row r
+// reads mask row r / mask_div. `partials` (fp32) and `counters` (int32) are
+// the sizes decode_attention_scratch gives for the same arguments (null when
+// 0); the counters must be zero at the launch, and the launch leaves them so.
+#define DECODE_MAX_NQ 256
+
+void decode_attention_scratch(int rows, int nq, int L, int D, int t_val, bool t_on_device,
+                              bool bf16, int64_t* partial_floats, int64_t* counters);
+
 cudaError_t decode_attention_launch(const void* q, const void* k, const void* v,
-                                    const uint8_t* mask, const int32_t* t_ptr,
-                                    int t_val, void* out, int rows, int nq, int L,
-                                    int D, int mask_div, float scale, bool bf16,
-                                    cudaStream_t stream);
+                                    const uint8_t* mask, const int32_t* t_ptr, int t_val,
+                                    void* out, float* partials, int* counters, int rows,
+                                    int nq, int L, int D, int mask_div, float scale,
+                                    bool bf16, cudaStream_t stream);
 
 // K2 in fp32, flash_attention.cu. q, k, v and o (rows, L, D) contiguous,
 // D in {64, 128}; lse (rows, L) fp32. mask as for K1 (null: none).
@@ -62,8 +70,11 @@ cudaError_t flash_attention_mma_bwd_launch(const void* q, const void* k, const v
                                            int64_t batch_stride, int64_t head_stride,
                                            int64_t row_stride, cudaStream_t stream);
 
-// K4, vq_argmin.cu. z (n, d) and codebook (n_e, d) fp32 -> idx (n,) int32.
-cudaError_t vq_argmin_launch(const float* z, const float* codebook, int32_t* idx,
-                             int n, int n_e, int d, cudaStream_t stream);
+// K4, vq_argmin.cu. z (n, d) and codebook (n_e, d) fp32, d <= 256 -> keys
+// (n,) uint64 whose low 32 bits are the nearest code's index. The keys must
+// hold all ones at the launch (a memset of 0xff).
+cudaError_t vq_argmin_launch(const float* z, const float* codebook,
+                             unsigned long long* keys, int n, int n_e, int d,
+                             cudaStream_t stream);
 
 }  // extern "C"

@@ -20,8 +20,6 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
   for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 

@@ -33,6 +33,7 @@ def _kernel(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if z.shape[1] > 256 or codebook.shape[0] == 0:
         raise ValueError(f"nearest_code: needs e_dim <= 256 and a non-empty "
                          f"codebook, got {tuple(codebook.shape)}")
+    # int32 indices as a stride-2 view of the kernel's 64-bit keys
     out = extension().vq_argmin(z, codebook)
     LAUNCHES["nearest_code"] += 1
     return out

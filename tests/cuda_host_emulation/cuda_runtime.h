@@ -2,7 +2,8 @@
 // with g++ -std=c++20: one std::thread per CUDA thread, blocks one after
 // another, __syncthreads as a std::barrier, and a per-warp barrier and
 // exchange area for the warp-level instructions (ptx_sm90.cuh beside this
-// file). The test that uses it rewrites two things in the kernel source that
+// file), and the fences, atomics and L2 loads of a combine across blocks.
+// The test that uses it rewrites two things in the kernel source that
 // C++ cannot express: `extern __shared__` arrays become pointers to
 // emulation::shared_memory(), and `kernel<<<grid, threads, smem, stream>>>(...)`
 // becomes emulation::launch(grid, threads, smem, [=] { kernel(...); }).
@@ -42,6 +43,7 @@ struct dim3 {
 };
 struct uint4 { uint32_t x, y, z, w; };
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 
 namespace emulation {
 
@@ -52,7 +54,7 @@ struct Copy { void* dst; const void* src; int bytes; bool valid; };
 struct Warp {
   std::barrier<> bar{32};
   uint32_t a[32][4], b[32][2];  // mma operands of every lane
-  float f[32];                  // shuffle values
+  uint64_t f[32];               // shuffle values (up to 64 bits)
   const void* p[32];            // ldmatrix row addresses
 };
 
@@ -130,15 +132,41 @@ inline int __syncthreads_or(int predicate) { return __syncthreads_count(predicat
 
 inline void __syncwarp() { emulation::warp().bar.arrive_and_wait(); }
 
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= sizeof(uint64_t));
   auto& w = emulation::warp();
   const int l = emulation::lane();
-  w.f[l] = v;
+  std::memcpy(&w.f[l], &v, sizeof(T));
   w.bar.arrive_and_wait();
-  const float r = w.f[l ^ lane_mask];
+  T r;
+  std::memcpy(&r, &w.f[l ^ lane_mask], sizeof(T));
   w.bar.arrive_and_wait();
   return r;
 }
 
+// Blocks run one after another, so every other block's writes are visible:
+// the fence is a full fence and the L2-only load a plain load.
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+
+inline float __ldcg(const float* p) { return *p; }
+
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+
+inline unsigned long long atomicMin(unsigned long long* p, unsigned long long v) {
+  std::atomic_ref<unsigned long long> a(*p);
+  unsigned long long old = a.load();
+  while (v < old && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+
+using std::isnan;
 using std::max;
 using std::min;

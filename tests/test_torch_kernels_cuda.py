@@ -23,7 +23,10 @@ def cuda():
 @pytest.mark.parametrize("rows,nq,l,d,t,masked", [
     (64, 1, 256, 64, 200, False),   # step_self
     (24, 10, 200, 64, None, True),  # step_cross, best-of-10, ragged L
-    (30, 4, 96, 48, 70, True),      # GQA rows, bound and mask, D=48
+    (30, 4, 96, 128, 70, True),     # GQA rows, bound and mask, D=128
+    (250, 12, 256, 64, 200, False), # MQA self: G = 12 query rows
+    (25, 120, 256, 64, None, True), # MQA cross, best-of-10: NQ = G * N = 120
+    (6, 256, 64, 64, 40, True),     # NQ at its limit
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, rows, nq, l, d, t, masked):
     from dyadic_interaction_modeling_tpu_torch.kernels.decode import (
@@ -32,14 +35,60 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, rows, nq, l, d,
     q, k, v = (torch.randn(s, device="cuda", generator=cuda).to(dtype)
                for s in ((rows, nq, d), (rows, l, d), (rows, l, d)))
     mask = None
-    if masked:
-        mask = torch.rand(rows // 6, l, device="cuda", generator=cuda) < 0.7
+    if masked:  # a mask row serves 6 cache rows (1 where 6 does not divide R)
+        mask = torch.rand(rows // 6 if rows % 6 == 0 else rows, l, device="cuda",
+                          generator=cuda) < 0.7
         mask[0] = False
     out = decode_attention(q, k, v, t, mask, scale=d ** -0.5)
     ref = decode_attention_plain(q, k, v, t, mask, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [1, 10])
+def test_decode_attention_kernel_at_split_boundaries(cuda, dtype, nq):
+    """t on both sides of every 16-key boundary (chunks are multiples of 16),
+    as an int and as a device tensor."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.decode import (
+        decode_attention, decode_attention_plain)
+
+    q, k, v = (torch.randn(s, device="cuda", generator=cuda).to(dtype)
+               for s in ((24, nq, 64), (24, 256, 64), (24, 256, 64)))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for t in [0] + [b + d for b in range(16, 256, 16) for d in (-1, 0)] + [255]:
+        ref = decode_attention_plain(q, k, v, t, scale=0.125)
+        for tt in (t, torch.tensor([t], dtype=torch.int32, device="cuda")):
+            out = decode_attention(q, k, v, tt, scale=0.125)
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+def test_decode_attention_kernel_is_deterministic(cuda):
+    """The splits are folded in a fixed order whichever block arrives last."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.decode import decode_attention
+
+    for nq, rows in ((10, 300), (120, 25), (1, 40)):
+        q, k, v = (torch.randn(s, device="cuda", generator=cuda).bfloat16()
+                   for s in ((rows, nq, 64), (rows, 256, 64), (rows, 256, 64)))
+        mask = torch.rand(rows // 5, 256, device="cuda", generator=cuda) < 0.8
+        first = decode_attention(q, k, v, None, mask, scale=0.125)
+        assert all(torch.equal(first, decode_attention(q, k, v, None, mask, scale=0.125))
+                   for _ in range(3))
+
+
+@pytest.mark.parametrize("n,n_e,d", [(1000, 512, 128), (70, 130, 20), (8192, 512, 128),
+                                     (333, 1000, 256)])
+def test_nearest_code_kernel_ragged_shapes(cuda, n, n_e, d):
+    from dyadic_interaction_modeling_tpu_torch.kernels.vq import (
+        nearest_code, nearest_code_plain)
+
+    e = torch.randn(n_e, d, device="cuda", generator=cuda)
+    want = torch.randint(0, n_e, (n,), device="cuda", generator=cuda)
+    z = e[want] + 0.01 * torch.randn(n, d, device="cuda", generator=cuda)
+    got = nearest_code(z, e)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.int()) and torch.equal(got, nearest_code_plain(z, e))
 
 
 def test_nearest_code_kernel_matches_plain(cuda):
@@ -159,6 +208,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="D % 8"):
         decode_attention(q, torch.randn(4, 8, 60, device="cuda"),
                          torch.randn(4, 8, 60, device="cuda"), 3, scale=0.1)
+    kv = torch.randn(2, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="NQ=257 .* at most 256"):
+        decode_attention(torch.randn(2, 257, 64, device="cuda"), kv, kv, 3, scale=0.1)
     with pytest.raises(ValueError, match="float32"):
         nearest_code(torch.randn(8, 16, device="cuda").half(),
                      torch.randn(4, 16, device="cuda").half())

@@ -124,6 +124,16 @@ def test_k1_cpu_dispatch_runs_plain_and_other_devices_raise():
         decode_attention(q.to("meta"), k.to("meta"), v.to("meta"), 5, scale=0.3)
 
 
+def test_k1_query_row_limit_is_the_same_on_every_device():
+    """NQ up to 256 (MQA best-of-10 cross attention has 120); above it the
+    wrapper raises with the limit, on the CPU as on the card."""
+    q, k, v = (torch.from_numpy(x) for x in _mk(2, 16, 64, nq=256, seed=11))
+    assert decode_attention(q, k, v, 7, scale=0.125).shape == (2, 256, 64)
+    q = torch.cat([q, q[:, :1]], dim=1)
+    with pytest.raises(ValueError, match="NQ=257 .* at most 256"):
+        decode_attention(q, k, v, 7, scale=0.125)
+
+
 @pytest.mark.parametrize("n,n_e,d,seed", [(300, 64, 32, 0), (6400 // 8, 512, 128, 1)])
 def test_k4_plain_matches_jax_exactly(n, n_e, d, seed):
     rng = np.random.default_rng(seed)
