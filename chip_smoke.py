@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version, drive SLMFT best-of-10 listener generation
-(multi-head and grouped-query) and the SLM pretraining step at full width,
-and time it all.
+(multi-head and grouped-query), the SLM pretraining step, the VQ-VAE
+tokenizer's training step and the SLMFT finetune step at full width, and
+time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -14,8 +15,9 @@ line):
    (sm_90a), timed;
 3. K4 ``nearest_code`` at (6400, 128) x (512, 128) fp32: exact indices on
    inputs with a margin, >= 99.9% agreement on plain random inputs, a NaN
-   latent gets code 0; the same at the training step's (8192, 128) and at
-   N and n_e that are not multiples of the kernel's tiles;
+   latent gets code 0; the same at the SLM training step's (8192, 128), at
+   the VQ training and finetune steps' (1024, 128), and at N and n_e that
+   are not multiples of the kernel's tiles;
 4. K1 ``decode_attention`` in fp32 (tolerance 1e-5) and bf16 (2e-2): the
    self case (3000, 1, 64) x L=256, MQA self (250, 12, 64) and GQA
    (750, 4, 64) at t on both sides of every key-split boundary (Python int
@@ -27,7 +29,10 @@ line):
    D = 128 case and L = 2048 (``enc_max_seq_len`` as the joint encoder
    reaches it), ragged key masks (one batch entry fully masked at
    (384, 512, 64): zero output and gradients), a causal tail tile at
-   L = 255. Tolerances: output fp32 2e-5, bf16 2e-2 (absolute and
+   L = 255; the VQ-VAEs' head width D = 48 at scale 384 ** -0.5, (8, 1024,
+   48) unmasked (VQ training, one clip) and (32, 512, 48) with ragged
+   lengths (four clips tokenized); causal plus the finetune's corruption key
+   mask at (48, 255, 64). Tolerances: output fp32 2e-5, bf16 2e-2 (absolute and
    relative); gradients 1e-4 (fp32) and 2e-2 (bf16) of the reference's
    largest magnitude. One bf16 case runs K2 and K3 twice: o, lse, dq, dk, dv
    bitwise equal (no atomics, a fixed order of sums);
@@ -54,9 +59,11 @@ line):
    step at B=4 with ragged lengths (128-256) with the kernels and with the
    plain versions on the card (equal VQ codes, losses within 1e-5 relative,
    gradients of the non-VQ leaves within 1e-3 of each leaf's largest
-   magnitude);
+   magnitude), and K4's codes in that step against the plain version on the
+   latents it was given (``k4_on_path``; likewise in 10 and 11);
 9. times after warmup: the median of 3 best-of-10 generate calls (host
-   clock); for each kernel at the main paths' shapes, its plain version and
+   clock); for each kernel at the main paths' shapes (K2/K3 in bf16, and
+   the D = 48 shapes in fp32 too), its plain version and
    one PyTorch library call on the same inputs where there is one
    (yardstick only, never on the port's path): ``ms``, the median of single
    launches each between its own pair of CUDA events (for K1 self, the
@@ -66,8 +73,28 @@ line):
    (K1 self, cross and MQA cross, K4, K2/K3, and SDPA beside K1-K3 as
    ``library_graph_ms``); the training step's median, and three steps under
    ``torch.profiler`` tracing the card only (device busy share of that
-   window, top device kernels); then the ``kernels`` JSON line and, last,
-   the device JSON line.
+   window, top device kernels);
+10. VQ-VAE tokenizer training at full width (``vq_listener_defaults()``:
+    hidden 384, 6 + 6 layers, 8 heads of 48, 512 x 128 codes), fp32, one
+    synthetic clip of 1024 frames, AdamW (1e-4, weight decay 0.01): steps
+    timed and traced as in 8 and 9, with 12 K2, 12 K3 and 1 K4 a step,
+    finite metrics and every parameter moved; then one fp32 step with the kernels and with the
+    plain versions (equal codes, metrics within 1e-5 relative, gradients
+    within 1e-3 of each leaf's largest magnitude);
+11. the SLMFT finetune at full width, fp32 parameters under bf16 autocast,
+    4 synthetic ViCo clips of L = 256, AdamW (1e-5, weight decay 0.01), clip
+    1.0, both VQs frozen: steps timed and traced as in 8 and 9, with 4 K2,
+    4 K3 (the decoder's causal self-attention under the 15% corruption key
+    mask) and 2 K4 a step, frozen VQs bitwise unchanged, every trainable
+    transformer tensor moved; then one fp32 step at ragged lengths (128-256) against the
+    plain versions, as in 10, on clips whose speaker moves
+    (``_finetune_batch`` says why); and on the ViCo-shaped clips, the fp32
+    runs with the kernels and with the plain versions against the plain
+    versions in fp64: on each leaf the kernels' error within 1e-3 or 4x the
+    plain fp32 run's;
+12. the VQ attention at D = 48 by both routes (``attend`` and K2/K3),
+    forward and backward, graph-timed at L = 256 and 1024 in fp32 and bf16;
+    then the ``kernels`` JSON line and, last, the device JSON line.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on tensor cores, 67 TFLOP/s fp32 on CUDA cores.
@@ -163,6 +190,16 @@ def graph_ms(fn, stream=None, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs) / inner
 
 
+def _autograd_pair(f, inputs, grad_out):
+    """``f`` on leaves of its own made on the current stream, as (forward,
+    backward) closures: autograd runs a backward on its forward's stream, so
+    a backward captured in a graph needs its forward made on that stream."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    out = f(*leaves)
+    return (lambda: f(*leaves),
+            lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True))
+
+
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -170,18 +207,65 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
 
 @contextlib.contextmanager
 def plain_attention():
-    """Inside, the x-transformers stack calls the plain versions of K1
-    (``decode_attention``) and K2/K3 (``flash_attention``) on the card, so a
-    path can be held against itself without the kernels."""
+    """Inside, the x-transformers stack and the VQ-VAEs' attention call the
+    plain versions of K1 (``decode_attention``) and K2/K3
+    (``flash_attention``) on the card, so a path can be held against itself
+    without the kernels."""
     from unittest import mock
 
     from dyadic_interaction_modeling_tpu_torch.kernels.attention import flash_attention_plain
     from dyadic_interaction_modeling_tpu_torch.kernels.decode import decode_attention_plain
     from dyadic_interaction_modeling_tpu_torch.models import xtrans
+    from dyadic_interaction_modeling_tpu_torch.ops import transformer
 
     with mock.patch.multiple(xtrans, decode_attention=decode_attention_plain,
-                             flash_attention=flash_attention_plain):
+                             flash_attention=flash_attention_plain), \
+            mock.patch.object(transformer, "flash_attention", flash_attention_plain):
         yield
+
+
+@contextlib.contextmanager
+def k4_calls():
+    """Inside, every K4 launch of the model (``ops.quantizer``'s) is recorded
+    as (latents, codebook, codes), so that the codes a path took can be held
+    against the plain version on the same latents afterwards."""
+    from unittest import mock
+
+    from dyadic_interaction_modeling_tpu_torch.ops import quantizer
+
+    calls, kernel = [], quantizer._nearest_code
+
+    def record(z, e):
+        idx = kernel(z, e)
+        calls.append((z.detach().clone(), e.detach().clone(), idx))
+        return idx
+
+    with mock.patch.object(quantizer, "_nearest_code", record):
+        yield calls
+
+
+def k4_on_path(calls, what):
+    """Recorded K4 codes against ``nearest_code_plain`` on the same latents:
+    equal, but for rows whose two codes' fp64 distances tie to 1e-5 of
+    |z|^2 + |e|^2 (the rounding of two fp32 sums in different orders), and
+    at most 0.1% of the rows (the random-input rule of ``k4_check``)."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.vq import nearest_code_plain
+
+    rows = differ = 0
+    worst = 0.0
+    for z, e, got in calls:
+        ref = nearest_code_plain(z, e)
+        diff = got != ref
+        scale = (z.double() ** 2).sum(1) + (e.double()[ref.long()] ** 2).sum(1)
+        gap = (_dist64(z, e, got) - _dist64(z, e, ref)).abs() / scale
+        worst = max(worst, float(gap[diff].max()) if bool(diff.any()) else 0.0)
+        rows, differ = rows + got.numel(), differ + int(diff.sum())
+    shapes = sorted({(tuple(z.shape), tuple(e.shape)) for z, e, _ in calls})
+    check(bool(calls) and worst <= 1e-5 and differ <= rows // 1000,
+          f"K4 on {what}'s own latents ({len(calls)} launches at {shapes}): "
+          f"{rows - differ} of {rows} codes equal to the plain version's, the others "
+          f"ties (largest relative distance gap {worst:.3g}, tol 1e-5)")
+    return {"launches": len(calls), "rows": rows, "differ": differ, "tie_gap": worst}
 
 
 @phase
@@ -237,8 +321,10 @@ def k4_check():
     got = nearest_code(zn, e)
     check(bool((got == nearest_code_plain(zn, e)).all()) and int(got[5]) == 0,
           "K4 NaN latent: code 0, other rows as the plain version")
-    # ragged N and n_e against the 64 x 128 block tile, and the training step's shape
-    for n, n_e, d in ((8192, 512, 128), (6401, 500, 128), (70, 130, 20)):
+    # the SLM training step's shape, the VQ training and finetune steps' (one
+    # clip of 1024 frames; 4 clips of 256), and ragged N and n_e against the
+    # kernel's tiles
+    for n, n_e, d in ((8192, 512, 128), (1024, 512, 128), (6401, 500, 128), (70, 130, 20)):
         e = torch.randn(n_e, d, device="cuda", generator=g)
         want = torch.randint(0, n_e, (n,), device="cuda", generator=g)
         z = e[want] + 0.01 * torch.randn(n, d, device="cuda", generator=g)
@@ -321,30 +407,43 @@ def k1_check():
 
 
 HEADS = 12
-# (name, rows, L, D, key mask, causal, launches per training step); rows are
-# batch x heads, the key mask (rows / HEADS, L)
+VQ_SCALE = 384 ** -0.5  # the VQ-VAEs' full-width scale (reference quirk), D = 384 / 8
+# (name, rows, L, D, heads, key mask, causal, scale, launches per SLM training
+# step); rows are batch x heads, a key mask (rows / heads, L): "prefix"
+# ragged lengths from L/2 to L, "random" the finetune's corruption (15% of
+# the keys a row, never key 0)
 K23_CASES = (
-    ("encoder_s/l (384,256,64) masked", 384, 256, 64, True, False, 8),
-    ("encoder_joint 2L (384,512,64) masked", 384, 512, 64, True, False, 4),
-    ("marginal joint (768,256,64) masked", 768, 256, 64, True, False, 4),
-    ("decoder self (768,255,64) causal", 768, 255, 64, False, True, 4),
-    ("D=128 (192,512,128) masked", 192, 512, 128, True, False, 0),
-    ("enc_max_seq_len (24,2048,64) masked", 24, 2048, 64, True, False, 0),
+    ("encoder_s/l (384,256,64) masked", 384, 256, 64, HEADS, "prefix", False, 0.125, 8),
+    ("encoder_joint 2L (384,512,64) masked", 384, 512, 64, HEADS, "prefix", False, 0.125, 4),
+    ("marginal joint (768,256,64) masked", 768, 256, 64, HEADS, "prefix", False, 0.125, 4),
+    ("decoder self (768,255,64) causal", 768, 255, 64, HEADS, None, True, 0.125, 4),
+    ("D=128 (192,512,128) masked", 192, 512, 128, HEADS, "prefix", False, 128 ** -0.5, 0),
+    ("enc_max_seq_len (24,2048,64) masked", 24, 2048, 64, HEADS, "prefix", False, 0.125, 0),
+    ("VQ train (8,1024,48)", 8, 1024, 48, 8, None, False, VQ_SCALE, 0),
+    ("VQ tokenize B=4 (32,512,48) masked", 32, 512, 48, 8, "prefix", False, VQ_SCALE, 0),
+    ("finetune decoder (48,255,64) causal+mask", 48, 255, 64, HEADS, "random", True, 0.125,
+     0),
 )
 DEAD_CASE = 1  # index of the case with one fully masked batch entry, run twice in bf16
+# the D = 48 cases, timed in fp32 (VQ training's dtype) as well
+VQ_CASES = tuple(i for i, c in enumerate(K23_CASES) if c[3] == 48)
 SOURCES = {torch.float32: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention.cu",
            torch.bfloat16: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention_mma.cu"}
 
 
-def _attn_inputs(rows, l, d, dtype, g, masked, dead=False):
+def _attn_inputs(rows, l, d, heads, dtype, g, mask_kind, dead=False):
     q, k, v, do = (torch.randn(rows, l, d, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
     mask = None
-    if masked:
-        lens = torch.randint(l // 2, l + 1, (rows // HEADS,), device="cuda", generator=g)
+    if mask_kind == "prefix":
+        lens = torch.randint(l // 2, l + 1, (rows // heads,), device="cuda", generator=g)
         mask = torch.arange(l, device="cuda")[None, :] < lens[:, None]
-        if dead:
-            mask[1] = False
+    elif mask_kind == "random":  # the finetune's input corruption
+        from dyadic_interaction_modeling_tpu_torch.models.xtrans import ar_mask_prob_kv_mask
+
+        mask = ar_mask_prob_kv_mask(rows // heads, l, 0.15, generator=g, device="cuda")
+    if dead:
+        mask[1] = False
     return q, k, v, do, mask
 
 
@@ -359,9 +458,10 @@ def k23_check():
     for dtype, tol_o, tol_g in ((torch.float32, 2e-5, 1e-4), (torch.bfloat16, 2e-2, 2e-2)):
         tag = str(dtype).replace("torch.", "")
         e_o, e_g, e_ga = [], [], []
-        for i, (name, rows, l, d, masked, causal, _) in enumerate(K23_CASES):
-            q, k, v, do, mask = _attn_inputs(rows, l, d, dtype, g, masked, i == DEAD_CASE)
-            kw = dict(causal=causal, scale=d ** -0.5)
+        for i, (name, rows, l, d, heads, mask_kind, causal, scale, _) in enumerate(K23_CASES):
+            q, k, v, do, mask = _attn_inputs(rows, l, d, heads, dtype, g, mask_kind,
+                                             i == DEAD_CASE)
+            kw = dict(causal=causal, scale=scale)
             o, lse = flash_attention_fwd(q, k, v, mask, **kw)
             ro, rlse = flash_attention_fwd_plain(q, k, v, mask, **kw)
             grads = flash_attention_bwd(q, k, v, ro, do, rlse, mask, **kw)
@@ -612,7 +712,9 @@ def train_main_path():
 @phase
 def train_reference():
     """One fp32 step at B=4 with ragged lengths: kernels against the plain
-    versions on the card, from the same weights and noise."""
+    versions on the card, from the same weights and noise; K4's codes
+    against the plain version on the latents it was given."""
+    what = "the SLM training step"
     b = 4
     src_v, tgt, src_a, _ = _candor(b, seed=9)
     lens = torch.tensor([L, 211, 170, 128], device="cuda")
@@ -625,7 +727,7 @@ def train_reference():
         model = _slm(seed=1)
         model.load_state_dict(state)
         model = model.to("cuda")
-        with plain_attention() if plain else contextlib.nullcontext():
+        with plain_attention() if plain else k4_calls() as calls:
             with torch.no_grad():
                 codes.append(model.forward_vq(src_v, tgt, mask))
             out = model(src_v, tgt, src_a, mask, noise=noise)
@@ -634,6 +736,8 @@ def train_reference():
         logs["total"] = float(out.total_loss.detach())
         results.append((logs, {k: p.grad for k, p in model.named_parameters()
                                if p.grad is not None}))
+        if not plain:
+            k4 = k4_on_path(calls, what)
     check(all(torch.equal(a, b) for a, b in zip(*codes)),
           "both runs' speaker and listener VQ codes equal (K4 is deterministic)")
     (lk, gk), (lp, gp) = results
@@ -649,7 +753,7 @@ def train_reference():
           f"each leaf's max: worst {core[worst]:.3g} ({worst})")
     say(f"VQ-decoder leaves (float-noise gradients, reported only): worst "
         f"{max(vq.values()):.3g} over {len(vq)} leaves")
-    return {"loss_rel": max(rel.values()), "grad_rel": core[worst]}
+    return {"loss_rel": max(rel.values()), "grad_rel": core[worst], "k4": k4}
 
 
 def _attn_bound(rows, l, d, dtype, mask, causal, bwd):
@@ -657,10 +761,11 @@ def _attn_bound(rows, l, d, dtype, mask, causal, bwd):
     the (query, key) pairs this data attends: 4 D per pair forward (Q Kᵀ,
     P V), 10 D backward (Q Kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ Q)."""
     es = torch.finfo(dtype).bits // 8
-    if causal:
+    if mask is not None:  # key j is attended by l - j queries under causal, else l
+        w = l - torch.arange(l, device=mask.device) if causal else l
+        pairs = (rows // mask.shape[0]) * float((mask.long() * w).sum())
+    elif causal:
         pairs = rows * l * (l + 1) / 2
-    elif mask is not None:
-        pairs = (rows // mask.shape[0]) * l * float(mask.sum())
     else:
         pairs = rows * l * l
     extra = rows * l * 4 + (0 if mask is None else mask.numel())
@@ -670,74 +775,83 @@ def _attn_bound(rows, l, d, dtype, mask, causal, bwd):
     return bound_ms(4 * io + extra, 4 * d * pairs, dtype)
 
 
-@phase
-def train_timings(train):
+def _trace_steps(step, args, what):
+    """The same window of PROFILED_STEPS steps traced twice by
+    ``torch.profiler``: the card alone (its busy share is the one reported),
+    then also the host's operators. Returns the two windows and the device
+    kernels with the most time a step (name, µs, launches), from the
+    second."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    import torch.nn.functional as F
     from dyadic_interaction_modeling_tpu_torch.cli.profile_generate import _busy_us
-    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_fwd_plain)
 
-    step, batch, gen = train["step"], train["batch"], train["gen"]
     windows = {}
-    # the same window of PROFILED_STEPS steps traced twice: the card alone
-    # (the busy share reported), then also the host's operators
     for tag, acts in (("card", [ProfilerActivity.CUDA]),
                       ("card+host", [ProfilerActivity.CPU, ProfilerActivity.CUDA])):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILED_STEPS):
-                step(batch, gen)
+                step(*args)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = _busy_us(kern)
         windows[tag] = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
                         "busy_share": busy / wall_us, "kernels": len(kern)}
-        say(f"{PROFILED_STEPS} train steps traced ({tag}): wall {wall_us / 1e3:.2f} ms, "
+        say(f"{PROFILED_STEPS} {what} steps traced ({tag}): wall {wall_us / 1e3:.2f} ms, "
             f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
             f"{len(kern)} kernels")
-    check(windows["card"]["kernels"] > 0, "tracing the card alone records its kernels")
+    check(windows["card"]["kernels"] > 0, f"tracing the card alone records the {what} "
+          "step's kernels")
     by_name = {}
     for e in kern:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.end - e.time_range.start, cnt + 1)
     top = [(name, tot / PROFILED_STEPS, cnt / PROFILED_STEPS) for name, (tot, cnt)
            in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]]
-    say("device time a step by kernel (card+host window):")
+    say(f"device time a {what} step by kernel (card+host window):")
     for name, tot, cnt in top:
         say(f"  {tot / 1e3:9.3f} ms  {cnt:7.1f} x  {name[:100]}")
+    return windows, top
+
+
+@phase
+def train_timings(train):
+    import torch.nn.functional as F
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+
+    windows, top = _trace_steps(train["step"], (train["batch"], train["gen"]), "train")
     del train["model"], train["step"]
     torch.cuda.empty_cache()
 
     g = torch.Generator(device="cuda").manual_seed(8)
     bf = torch.bfloat16
     cases = {}
-    for name, rows, l, d, masked, causal, per_step in K23_CASES:
-        q, k, v, do, mask = _attn_inputs(rows, l, d, bf, g, masked)
-        kw = dict(causal=causal, scale=d ** -0.5)
+    # every case in bf16, the D = 48 (VQ) cases also in fp32, VQ training's dtype
+    runs = [(c, bf, c[0]) for c in K23_CASES]
+    runs += [(K23_CASES[i], torch.float32, K23_CASES[i][0] + " fp32") for i in VQ_CASES]
+    for (name, rows, l, d, heads, mask_kind, causal, scale, per_step), dt, key in runs:
+        q, k, v, do, mask = _attn_inputs(rows, l, d, heads, dt, g, mask_kind)
+        kw = dict(causal=causal, scale=scale)
         o, lse = flash_attention_fwd(q, k, v, mask, **kw)
-        b = rows // HEADS
+        b = rows // heads
         m4 = None if mask is None else mask[:, None, None, :]
+        if causal and m4 is not None:  # SDPA takes a mask or is_causal, not both
+            m4 = m4 & torch.ones(l, l, dtype=torch.bool, device="cuda").tril()
 
-        def sdpa_on_stream():
-            """SDPA's forward on leaves of its own, made on the current stream,
-            and its backward: autograd runs a backward on its forward's stream."""
-            q4, k4, v4 = (x.view(b, HEADS, l, d).detach().requires_grad_() for x in (q, k, v))
-            fwd_ = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q4, k4, v4, attn_mask=m4, is_causal=causal, scale=kw["scale"])
-            out4 = fwd_()
-            return fwd_, lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view_as(out4),
-                                                     retain_graph=True)
+        def sdpa_fwd(q4, k4, v4, m4=m4, causal=causal and m4 is None, scale=scale):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, is_causal=causal,
+                                                  scale=scale)
 
-        sdpa, sdpa_bwd = sdpa_on_stream()
+        as4 = [x.view(b, heads, l, d) for x in (q, k, v)]
+        sdpa, sdpa_bwd = _autograd_pair(sdpa_fwd, as4, do.view(b, heads, l, d))
         side = torch.cuda.Stream()  # a second forward, for the captured backward
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            _, sdpa_bwd_side = sdpa_on_stream()
+            _, sdpa_bwd_side = _autograd_pair(sdpa_fwd, as4, do.view(b, heads, l, d))
         torch.cuda.current_stream().wait_stream(side)
         # ms and library_ms: single launches between events, the method of every
         # other kernel here; graph_ms and library_graph_ms: the card alone
@@ -747,7 +861,7 @@ def train_timings(train):
             library_ms=cuda_ms(lambda i: sdpa(), 20),
             graph_ms=graph_ms(lambda: flash_attention_fwd(q, k, v, mask, **kw)),
             library_graph_ms=graph_ms(sdpa))
-        fwd["bound_ms"], fwd["bound_by"] = _attn_bound(rows, l, d, bf, mask, causal, False)
+        fwd["bound_ms"], fwd["bound_by"] = _attn_bound(rows, l, d, dt, mask, causal, False)
         bwd = dict(
             ms=cuda_ms(lambda i: flash_attention_bwd(q, k, v, o, do, lse, mask, **kw), 20),
             plain_ms=cuda_ms(lambda i: flash_attention_bwd_plain(q, k, v, o, do, lse, mask,
@@ -755,11 +869,12 @@ def train_timings(train):
             library_ms=cuda_ms(lambda i: sdpa_bwd(), 20),
             graph_ms=graph_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, mask, **kw)),
             library_graph_ms=graph_ms(sdpa_bwd_side, stream=side))
-        bwd["bound_ms"], bwd["bound_by"] = _attn_bound(rows, l, d, bf, mask, causal, True)
-        cases[name] = {"per_step": per_step, "fwd": fwd, "bwd": bwd}
+        bwd["bound_ms"], bwd["bound_by"] = _attn_bound(rows, l, d, dt, mask, causal, True)
+        cases[key] = {"per_step": per_step if dt == bf else 0, "dtype": str(dt)[6:],
+                      "fwd": fwd, "bwd": bwd}
         for tag, r in (("K2", fwd), ("K3", bwd)):
-            say(f"{tag} {name} bf16: kernel {r['ms'] * 1e3:.1f} us, plain "
-                f"{r['plain_ms'] * 1e3:.1f} us, SDPA {r['library_ms'] * 1e3:.1f} us, "
+            say(f"{tag} {key}{'' if dt != bf else ' bf16'}: kernel {r['ms'] * 1e3:.1f} us, "
+                f"plain {r['plain_ms'] * 1e3:.1f} us, SDPA {r['library_ms'] * 1e3:.1f} us, "
                 f"from a CUDA graph: kernel {r['graph_ms'] * 1e3:.1f} us, SDPA "
                 f"{r['library_graph_ms'] * 1e3:.1f} us, "
                 f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
@@ -775,6 +890,346 @@ def train_timings(train):
     return {"busy_share": windows["card"]["busy_share"], "windows": windows,
             "top": [(n, t / 1e3, c) for n, t, c in top], "cases": cases,
             "per_step": per_step}
+
+
+VQ_L, FT_B = 1024, 4
+VQ_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 12,
+                    "flash_attention_bwd": 12, "nearest_code": 1}
+FT_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 4,
+                    "flash_attention_bwd": 4, "nearest_code": 2}
+
+
+def _timed_steps(step, args, what, want_per_step):
+    """WARMUP_STEPS steps, then TRAIN_STEPS each between its own pair of CUDA
+    events, with every launch count set to 0 just before those and read just
+    after. Returns (median step s, every step in s, launches, metrics of
+    each step)."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+
+    logs = [step(*args) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(TRAIN_STEPS)]
+    kernels.reset_launch_counts()
+    for start, end in pairs:
+        start.record()
+        logs.append(step(*args))
+        end.record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    times = [start.elapsed_time(end) / 1e3 for start, end in pairs]
+    want = {k: v * TRAIN_STEPS for k, v in want_per_step.items()}
+    say(f"launches in {TRAIN_STEPS} {what} steps: {launches}")
+    check(launches == want, f"{what} launches == {want} (a step: {want_per_step})")
+    check(all(bool(torch.isfinite(v).all()) for lg in logs for v in lg.values()),
+          f"{what}: metrics finite over {len(logs)} steps")
+    return statistics.median(times), times, launches, logs
+
+
+def _vq_model(seed):
+    from dyadic_interaction_modeling_tpu_torch.config import vq_listener_defaults
+    from dyadic_interaction_modeling_tpu_torch.models.vq_vae import VQAutoEncoder
+
+    torch.manual_seed(seed)
+    return VQAutoEncoder(vq_listener_defaults())
+
+
+def _vq_clip(seed):
+    """One synthetic listener clip of VQ_L frames, as the VQ collate gives it."""
+    from dyadic_interaction_modeling_tpu_torch.data.loader import vq_collate
+    from dyadic_interaction_modeling_tpu_torch.data.synthetic import synthetic_vico_dataset
+
+    ds = synthetic_vico_dataset(n_clips=1, min_len=VQ_L, max_len=VQ_L, seed=seed)
+    return torch.as_tensor(vq_collate([(ds[0][1],)]), device="cuda")
+
+
+@phase
+def vq_train_main_path():
+    """VQ-VAE tokenizer training at full width (vq_listener_defaults: hidden
+    384, 6 + 6 layers, 8 heads of 48, 512 x 128 codes), fp32, one clip of
+    1024 frames, AdamW lr 1e-4 with weight decay 0.01 (train_vq's)."""
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.engine.vq_engine import make_vq_train_step
+
+    model = _vq_model(seed=0).to("cuda")
+    step = make_vq_train_step(model, make_optimizer(model, 1e-4, 0.01))
+    clip = _vq_clip(seed=11)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    med, times, launches, logs = _timed_steps(step, (clip,), "VQ training", VQ_STEP_LAUNCHES)
+    still = [k for k, p in model.named_parameters() if torch.equal(p, before[k])]
+    check(not still, f"all {len(before)} VQ parameter tensors moved (unmoved: {still[:5]})")
+    say(f"VQ train step B=1 L={VQ_L} fp32, CUDA events: median {med * 1e3:.2f} ms of "
+        f"{[round(t * 1e3, 2) for t in times]} -> {VQ_L / med:.0f} frames/s")
+    say(f"metrics of the first warmup step {_rounded(logs[0])}; of the last {_rounded(logs[-1])}")
+    windows, top = _trace_steps(step, (clip,), "VQ training")
+    return {"launches": launches, "step_ms": med * 1e3, "step_runs_ms": [t * 1e3 for t in times],
+            "windows": windows, "top": [(n, t / 1e3, c) for n, t, c in top]}
+
+
+def _rounded(logs):
+    return {k: round(float(v), 4) for k, v in logs.items()}
+
+
+def _grad_errs(gk, gp):
+    return {k: float((gk[k] - gp[k]).abs().max() / gp[k].abs().max().clamp_min(1e-30))
+            for k in gp}
+
+
+@phase
+def vq_train_reference():
+    """One fp32 VQ step's forward and backward with the kernels and with
+    their plain versions, from the same weights on the same clip: equal
+    codes, losses within 1e-5 relative, gradients within 1e-3 of each
+    leaf's largest magnitude. K4 runs in both (``plain_attention`` swaps the
+    attention only), so its codes are held against ``nearest_code_plain`` on
+    the latents it was given (``k4_on_path``)."""
+    from dyadic_interaction_modeling_tpu_torch.metrics.loss import calc_vq_loss
+
+    clip = _vq_clip(seed=12)
+    state = _vq_model(seed=1).state_dict()
+    results = []
+    for plain in (False, True):
+        model = _vq_model(seed=1)
+        model.load_state_dict(state)
+        model = model.to("cuda")
+        with plain_attention() if plain else k4_calls() as calls:
+            dec, emb_loss, enc = model(clip)
+            total, (rec, quant) = calc_vq_loss(dec, clip, emb_loss)
+            total.backward()
+        results.append(({"loss": float(total.detach()), "rec_loss": float(rec),
+                          "quant_loss": float(quant), "perplexity": float(enc.perplexity)},
+                         enc.indices, {k: p.grad for k, p in model.named_parameters()
+                                       if p.grad is not None}))
+        if not plain:
+            k4 = k4_on_path(calls, "the VQ training step")
+    (lk, ck, gk), (lp, cp, gp) = results
+    check(torch.equal(ck, cp), f"VQ codes equal with the kernels and with the plain versions "
+          f"({ck.numel()} codes)")
+    rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    check(max(rel.values()) <= 1e-5, f"fp32 VQ step L={VQ_L}, kernels vs plain: metrics rel "
+          f"err {max(rel.values()):.3g} (tol 1e-5): {lk}")
+    errs = _grad_errs(gk, gp)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= 1e-3, f"gradients of {len(errs)} VQ leaves within 1e-3 of each "
+          f"leaf's max: worst {errs[worst]:.3g} ({worst})")
+    return {"loss_rel": max(rel.values()), "grad_rel": errs[worst], "k4": k4}
+
+
+def _finetune_batch(lens, seed, moving_speaker=False):
+    """FT_B synthetic clips of L frames, as one batch on the card, with the
+    key mask of ``lens``: ViCo-shaped (whose speaker motion is constant, as
+    the synthetic ViCo set makes it), or with ``moving_speaker`` the same
+    layout with smooth speaker motion (the synthetic CANDOR set). Under a
+    constant speaker the speaker encoders' query and key gradients cancel to
+    ~1e-6 of their value gradients, too little to hold two runs' rounding
+    against, so the kernel-vs-plain comparison takes moving speakers."""
+    batch = _candor(FT_B, seed) if moving_speaker else (
+        torch.as_tensor(x, device="cuda") for x in _clips(FT_B, seed)[0][:4])
+    src_v, tgt, src_a, _ = batch
+    mask = torch.arange(L, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]
+    return src_v, tgt, src_a, mask
+
+
+@phase
+def finetune_main_path():
+    """The SLMFT listener finetune at full width (slm_defaults +
+    vq_listener_defaults): fp32 parameters under bf16 autocast, FT_B clips of
+    L = 256, AdamW lr 1e-5 with weight decay 0.01, clip 1.0, both VQs frozen
+    (finetune_s2s_pretrain's)."""
+    from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import make_slm_train_step
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.models.slm import SLMFT_FROZEN
+
+    model = _model(torch.float32, seed=0)[0].to("cuda")
+    opt = make_optimizer(model, 1e-5, 0.01, SLMFT_FROZEN)
+    step = make_slm_train_step(model, opt, 1.0, torch.bfloat16)
+    batch = _finetune_batch([L] * FT_B, seed=13)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    med, times, launches, logs = _timed_steps(step, (batch, g), "finetune", FT_STEP_LAUNCHES)
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    check(bool(frozen) and all(k.startswith(SLMFT_FROZEN) for k in frozen)
+          and all(torch.equal(model.get_parameter(k), before[k]) for k in frozen),
+          f"{len(frozen)} frozen VQ tensors bitwise unchanged")
+    moving = [k for k, p in model.named_parameters() if p.requires_grad
+              and k.startswith(("encoder_", "decoder_joint"))]
+    still = [k for k in moving if torch.equal(model.get_parameter(k), before[k])]
+    check(not still, f"all {len(moving)} trainable transformer tensors moved "
+          f"(unmoved: {still[:5]})")
+    say(f"SLMFT finetune step B={FT_B} L={L} bf16 autocast, CUDA events: median "
+        f"{med * 1e3:.2f} ms of {[round(t * 1e3, 2) for t in times]} -> "
+        f"{FT_B * L / med:.0f} frames/s")
+    say(f"logs of the first warmup step {_rounded(logs[0])}; of the last {_rounded(logs[-1])}")
+    windows, top = _trace_steps(step, (batch, g), "finetune")
+    return {"launches": launches, "step_ms": med * 1e3, "step_runs_ms": [t * 1e3 for t in times],
+            "windows": windows, "top": [(n, t / 1e3, c) for n, t, c in top]}
+
+
+@phase
+def finetune_reference():
+    """One fp32 finetune step at FT_B clips of ragged lengths (128-256), with
+    the kernels and with the plain versions, from the same weights and
+    corruption noise: equal codes, losses within 1e-5 relative, gradients
+    within 1e-3 of each leaf's largest magnitude; K4's codes against the
+    plain version on the latents it was given."""
+    what = "the finetune step"
+    batch = _finetune_batch([L, 211, 170, 128], seed=14, moving_speaker=True)
+    state = _model(torch.float32, seed=1)[0].state_dict()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    noise = torch.randn(FT_B, L - 1, device="cuda", generator=g)
+    results, codes = [], []
+    for plain in (False, True):
+        model = _model(torch.float32, seed=1)[0]
+        model.load_state_dict(state)
+        model = model.to("cuda")
+        with plain_attention() if plain else k4_calls() as calls:
+            with torch.no_grad():
+                codes.append(model.forward_vq(batch[0], batch[1], batch[3]))
+            out = model(*batch, noise=noise)
+            out.total_loss.backward()
+        logs = {k: float(v) for k, v in out.logs.items() if k in ("l_ce_l", "l_cont_l")}
+        logs["total"] = float(out.total_loss.detach())
+        results.append((logs, {k: p.grad for k, p in model.named_parameters()
+                               if p.grad is not None}))
+        if not plain:
+            k4 = k4_on_path(calls, what)
+    check(all(torch.equal(a, b) for a, b in zip(*codes)),
+          "both runs' speaker and listener VQ codes equal")
+    (lk, gk), (lp, gp) = results
+    rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    check(max(rel.values()) <= 1e-5, f"fp32 finetune step B={FT_B} ragged, kernels vs plain: "
+          f"losses rel err {max(rel.values()):.3g} (tol 1e-5): {lk}")
+    errs = _grad_errs(gk, gp)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= 1e-3, f"gradients of {len(errs)} leaves within 1e-3 of each leaf's "
+          f"max: worst {errs[worst]:.3g} ({worst})")
+    return {"loss_rel": max(rel.values()), "grad_rel": errs[worst], "k4": k4}
+
+
+@contextlib.contextmanager
+def fp64_where_fp32():
+    """Inside, ``Tensor.float()`` leaves an fp64 tensor as it is, so that a
+    model run in fp64 stays in fp64 where it rounds to fp32 on purpose
+    (attention scores and softmax, the cross-entropy's log-softmax)."""
+    from unittest import mock
+
+    to_float = torch.Tensor.float
+
+    def keep64(x, *args, **kwargs):
+        return x if x.dtype == torch.float64 else to_float(x, *args, **kwargs)
+
+    with mock.patch.object(torch.Tensor, "float", keep64):
+        yield
+
+
+def finetune_grads_fp64(make_model, batch, noise):
+    """The gradients of one finetune loss, from the same weights, VQ codes
+    and corruption noise: fp32 with the kernels, fp32 with the plain
+    versions, and the plain versions in fp64 (``fp64_where_fp32``). The
+    first run's VQ codes stand in all three, so that a run in another dtype
+    cannot take another code at a tie."""
+    runs, codes = [], None
+    for plain, dtype in ((False, torch.float32), (True, torch.float32), (True, torch.float64)):
+        model = make_model().to(batch[0].device, dtype)
+        if codes is None:
+            with torch.no_grad():
+                codes = model.forward_vq(batch[0], batch[1], batch[3])
+        model.forward_vq = lambda *args: codes
+        inputs = [x.to(dtype) if x.is_floating_point() else x for x in batch]
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_attention())
+            if dtype == torch.float64:
+                stack.enter_context(fp64_where_fp32())
+            model(*inputs, noise=noise).total_loss.backward()
+        runs.append({k: p.grad.double() for k, p in model.named_parameters()
+                     if p.grad is not None})
+        del model
+    return runs
+
+
+@phase
+def finetune_fp64_reference():
+    """The ViCo-shaped clips (a constant speaker) at ragged lengths
+    (128-256), which ``finetune_reference`` does not take: there the speaker
+    encoder's query and key gradients cancel (``_finetune_batch``), so that
+    fp32 rounding alone moves them by percents of their largest magnitude.
+    Both fp32 runs, with the kernels and with the plain versions, are held
+    against the plain versions in fp64: on every leaf the kernels' error,
+    relative to the fp64 leaf's largest magnitude, is within 1e-3 or within
+    4x the plain fp32 run's error on that leaf."""
+    batch = _finetune_batch([L, 211, 170, 128], seed=14)
+    state = _model(torch.float32, seed=1)[0].state_dict()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    noise = torch.randn(FT_B, L - 1, device="cuda", generator=g)
+
+    def make_model():
+        model = _model(torch.float32, seed=1)[0]
+        model.load_state_dict(state)
+        return model
+
+    gk, gp, g64 = finetune_grads_fp64(make_model, batch, noise)
+    ek, ep, ekp = _grad_errs(gk, g64), _grad_errs(gp, g64), _grad_errs(gk, gp)
+    worst = max(ekp, key=ekp.get)
+    say(f"kernels vs plain, both fp32: worst {ekp[worst]:.3g} of the leaf's max ({worst})")
+    hard = sorted((k for k in g64 if ep[k] > 1e-3), key=ep.get, reverse=True)
+    big = max(float(x.abs().max()) for x in g64.values())
+    rows = {}
+    for k in hard:
+        v = k.replace(".to_q.", ".to_v.").replace(".to_k.", ".to_v.")
+        rows[k] = {"kernels": ek[k], "plain_fp32": ep[k], "fp64_max": float(g64[k].abs().max()),
+                   "to_v_fp64_max": float(g64[v].abs().max()) if v in g64 else None}
+    for k, r in list(rows.items())[:6]:
+        say(f"  {k}: off fp64 by {r['kernels']:.3g} (kernels) and {r['plain_fp32']:.3g} "
+            f"(plain fp32) of its largest fp64 magnitude {r['fp64_max']:.3g} "
+            f"(its layer's to_v: {r['to_v_fp64_max']}; largest of all leaves {big:.3g})")
+    easy = [k for k in g64 if k not in rows]
+    rest = max(easy, key=ek.get)
+    say(f"the other {len(easy)} leaves: the kernels within {ek[rest]:.3g} of fp64 ({rest}), "
+        f"the plain fp32 run within {max(ep[k] for k in easy):.3g}")
+    bad = [k for k in g64 if ek[k] > max(1e-3, 4 * ep[k])]
+    ratio = max(ek[k] / ep[k] for k in hard) if hard else None
+    check(not bad, f"fp32 finetune step on ViCo-shaped clips against fp64: the kernels' "
+          f"error within 1e-3 or 4x the plain fp32 run's on each of {len(g64)} leaves "
+          f"({len(hard)} leaves where the plain fp32 run is past 1e-3, largest ratio "
+          f"{ratio}; worst kernel error {max(ek.values()):.3g}; failing: {bad[:5]})")
+    return {"kernels_vs_plain_fp32": ekp[worst], "kernels_vs_plain_fp32_leaf": worst,
+            "kernels_vs_fp64": max(ek.values()), "plain_fp32_vs_fp64": max(ep.values()),
+            "past_1e-3": rows, "largest_ratio": ratio, "kernels_vs_fp64_other_leaves": ek[rest]}
+
+
+@phase
+def vq_attention_routes():
+    """The VQ attention at D = 48 by both routes, forward and forward +
+    backward, graph-timed (the card alone): the matmul path (``attend``) and
+    K2/K3, at L = 256 and 1024, 8 rows (one clip, 8 heads), fp32 and bf16.
+    These set the port's L >= 512 gate in a later change."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import flash_attention
+    from dyadic_interaction_modeling_tpu_torch.ops.transformer import attend
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for l in (256, 1024):
+            q, k, v, do = (torch.randn(1, 8, l, 48, device="cuda", generator=g).to(dt)
+                           for _ in range(4))
+            routes = {"attend": lambda q, k, v: attend(q, k, v, VQ_SCALE, None),
+                      "flash": lambda q, k, v: flash_attention(
+                          q[0], k[0], v[0], scale=VQ_SCALE)[None]}
+            for route, f in routes.items():
+                fwd, _ = _autograd_pair(f, (q, k, v), do)
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    _, bwd = _autograd_pair(f, (q, k, v), do)
+                torch.cuda.current_stream().wait_stream(side)
+                r = {"fwd_graph_ms": graph_ms(fwd), "bwd_graph_ms": graph_ms(bwd, stream=side)}
+                out[f"{route} {str(dt)[6:]} L={l}"] = r
+                say(f"VQ attention (8,{l},48) {str(dt)[6:]} by {route}: forward "
+                    f"{r['fwd_graph_ms'] * 1e3:.1f} us, backward {r['bwd_graph_ms'] * 1e3:.1f} "
+                    "us (from a CUDA graph)")
+            del q, k, v, do
+    return out
 
 
 @phase
@@ -849,15 +1304,17 @@ def timings(main):
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 4 * rows * nq * L * 64, bf)
         out[name] = r
         del sets, masks4
-    # K4: (6400, 128) latents x (512, 128) codebook, fp32
-    z = torch.randn(6400, 128, device="cuda", generator=g)
-    e = torch.randn(512, 128, device="cuda", generator=g)
-    r = dict(ms=cuda_ms(lambda i: nearest_code(z, e), 200),
-             plain_ms=cuda_ms(lambda i: nearest_code_plain(z, e), 200), library_ms=None,
-             graph_ms=graph_ms(lambda: nearest_code(z, e)), library_graph_ms=None)
-    r["bound_ms"], r["bound_by"] = bound_ms(6400 * 128 * 4 + 512 * 128 * 4 + 6400 * 4,
-                                            2 * 6400 * 512 * 128, torch.float32)
-    out["vq"] = r
+    # K4: (n, 128) latents x (512, 128) codebook, fp32: n = 6400 in a
+    # generate, 1024 in a VQ training step and twice in a finetune step
+    for name, n in (("vq", 6400), ("vq_1024", 1024)):
+        z = torch.randn(n, 128, device="cuda", generator=g)
+        e = torch.randn(512, 128, device="cuda", generator=g)
+        r = dict(ms=cuda_ms(lambda i: nearest_code(z, e), 200),
+                 plain_ms=cuda_ms(lambda i: nearest_code_plain(z, e), 200), library_ms=None,
+                 graph_ms=graph_ms(lambda: nearest_code(z, e)), library_graph_ms=None)
+        r["bound_ms"], r["bound_by"] = bound_ms(n * 128 * 4 + 512 * 128 * 4 + n * 4,
+                                                2 * n * 512 * 128, torch.float32)
+        out[name] = r
     for name, r in out.items():
         lib = ("n/a" if r["library_ms"] is None else
                f"{r['library_ms'] * 1e3:.2f} us (graph {r['library_graph_ms'] * 1e3:.2f} us)")
@@ -868,55 +1325,75 @@ def timings(main):
             **out}
 
 
-def _flash_entry(name, line, which, tt, k23, launches):
+def _flash_entry(name, line, which, tt, k23, by_path):
     cases = tt["cases"]
     return {"name": name, "route": "cuda", "source": SOURCES[torch.bfloat16],
             "sources_by_dtype": {str(k).replace("torch.", ""): v for k, v in SOURCES.items()},
             "replaces": f"dyadic_interaction_modeling_tpu/ops/pallas/attention.py:{line}",
-            "launches": launches[name],
-            "launches_by_path": {"generate": 0, f"train_{TRAIN_STEPS}_steps": launches[name]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": k23["bfloat16"]["fwd_abs" if which == "fwd" else "bwd_abs"],
-            # launch-weighted means over one training step's 20 launches
+            # launch-weighted means over one SLM training step's 20 launches
             **{key: val / 20 for key, val in tt["per_step"][which].items()},
             "bound_by": max((c[which] for c in cases.values() if c["per_step"]),
                             key=lambda r: r["bound_ms"])["bound_by"],
             "cases": {k: c[which] for k, c in cases.items()}, "max_err": k23}
 
 
-def kernels_line(gen_launches, mqa_launches, train, k4, k1, k23, t, tt, build_s):
+def kernels_line(gen_launches, mqa_launches, train, vq, ft, k4, k1, k23, t, tt, routes,
+                 refs, ft64, build_s):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
                         "library_graph_ms")}
-    tl = train["launches"]
+    paths = {f"train_{TRAIN_STEPS}_steps": train["launches"],
+             f"vq_train_{TRAIN_STEPS}_steps": vq["launches"],
+             f"finetune_{TRAIN_STEPS}_steps": ft["launches"]}
+
+    def by_path(name, generate=None):
+        out = {} if generate is None else generate
+        return {**out, **{path: counts[name] for path, counts in paths.items()}}
+
+    k4_paths = by_path("nearest_code", {"generate": gen_launches["nearest_code"],
+                                        "generate_mqa": mqa_launches["nearest_code"]})
     return {"kernels": [
         {"name": "decode_attention", "route": "cuda",
          "source": "dyadic_interaction_modeling_tpu_torch/csrc/decode_attention.cu",
          "replaces": "dyadic_interaction_modeling_tpu/ops/pallas/decode.py:129",
          "launches": gen_launches["decode_attention"],
-         "launches_by_path": {"generate": gen_launches["decode_attention"],
-                              "generate_mqa": mqa_launches["decode_attention"],
-                              f"train_{TRAIN_STEPS}_steps": tl["decode_attention"]},
+         "launches_by_path": by_path("decode_attention", {
+             "generate": gen_launches["decode_attention"],
+             "generate_mqa": mqa_launches["decode_attention"]}),
          "max_abs_err": k1["bfloat16"], **mean, "bound_by": "bytes",
          "cases": {"self (3000,1,64) L=256 t=0..255 bf16": self_,
                    "cross (300,10,64) L=256 masked bf16": cross,
                    "MQA cross (25,120,64) L=256 masked bf16": t["mqa_cross"],
                    "max_abs_err": k1}},
-        _flash_entry("flash_attention_fwd", 111, "fwd", tt, k23, tl),
-        _flash_entry("flash_attention_bwd", 152, "bwd", tt, k23, tl),
+        _flash_entry("flash_attention_fwd", 111, "fwd", tt, k23,
+                     by_path("flash_attention_fwd", {"generate": 0})),
+        _flash_entry("flash_attention_bwd", 152, "bwd", tt, k23,
+                     by_path("flash_attention_bwd", {"generate": 0})),
         {"name": "nearest_code", "route": "cuda",
          "source": "dyadic_interaction_modeling_tpu_torch/csrc/vq_argmin.cu",
          "replaces": "dyadic_interaction_modeling_tpu/ops/pallas/vq.py:49",
-         "launches": gen_launches["nearest_code"] + tl["nearest_code"],
-         "launches_by_path": {"generate": gen_launches["nearest_code"],
-                              "generate_mqa": mqa_launches["nearest_code"],
-                              f"train_{TRAIN_STEPS}_steps": tl["nearest_code"]},
-         "max_abs_err": k4["max_abs_err"], **t["vq"], "agree": k4["agree"]},
+         "launches": sum(v for k, v in k4_paths.items() if k != "generate_mqa"),
+         "launches_by_path": k4_paths,
+         "max_abs_err": k4["max_abs_err"], **t["vq"], "agree": k4["agree"],
+         "cases": {"(6400,128) x (512,128) fp32 (generate)": t["vq"],
+                   "(1024,128) x (512,128) fp32 (VQ training, finetune)": t["vq_1024"]},
+         "on_path_latents": {path: r["k4"] for path, r in refs.items()}},
     ], "generate_ms": t["generate_ms"], "generate_runs_ms": t["generate_runs_ms"],
         "train_step_ms": train["step_ms"], "train_step_runs_ms": train["step_runs_ms"],
         "train_frames_per_s": TRAIN_B * L / train["step_ms"] * 1e3,
         "train_busy_share": tt["busy_share"], "train_traced_windows": tt["windows"],
-        "build_s": build_s}
+        "vq_train_step_ms": vq["step_ms"], "vq_train_step_runs_ms": vq["step_runs_ms"],
+        "vq_train_frames_per_s": VQ_L / vq["step_ms"] * 1e3,
+        "vq_train_busy_share": vq["windows"]["card"]["busy_share"],
+        "vq_train_traced_windows": vq["windows"],
+        "finetune_step_ms": ft["step_ms"], "finetune_step_runs_ms": ft["step_runs_ms"],
+        "finetune_frames_per_s": FT_B * L / ft["step_ms"] * 1e3,
+        "finetune_busy_share": ft["windows"]["card"]["busy_share"],
+        "finetune_traced_windows": ft["windows"],
+        "finetune_fp64_reference": ft64, "vq_attention_routes": routes, "build_s": build_s}
 
 
 def main() -> int:
@@ -945,12 +1422,21 @@ def main() -> int:
     train = train_main_path()
     train_ref = train_reference()
     tt = train_timings(train) if train else None
+    vq = vq_train_main_path()
+    vq_ref = vq_train_reference()
+    torch.cuda.empty_cache()
+    ft = finetune_main_path()
+    ft_ref = finetune_reference()
+    ft64 = finetune_fp64_reference()
+    torch.cuda.empty_cache()
+    routes = vq_attention_routes()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_ref, train,
-                            train_ref, tt):
+                            train_ref, tt, vq, vq_ref, ft, ft_ref, ft64, routes):
         say(f"FAILED: {FAILURES}")
         return 1
-    say(json.dumps(kernels_line(gen_launches, mqa_launches, train, k4, k1, k23, t, tt,
-                                build_s)))
+    refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref}
+    say(json.dumps(kernels_line(gen_launches, mqa_launches, train, vq, ft, k4, k1, k23, t,
+                                tt, routes, refs, ft64, build_s)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,8 @@ registers, spills and shared memory as ``ptxas -v`` reports them.
 The one source builds in seconds (no PyTorch header is involved), so this is
 also the quick way to ask the compiler about an edit. Needs ``nvcc``; the
 kernels' results are checked by ``tests/test_torch_kernels_cuda.py`` and
-``chip_smoke.py``.
+``chip_smoke.py``. Every instantiation is listed by its template arguments
+(D in {48, 64, 128}, causal, and the forward's warps).
 """
 
 from __future__ import annotations
@@ -35,10 +36,20 @@ def main() -> int:
     for line in (out.stdout + out.stderr).splitlines():
         entry = re.search(r"entry function '(\w+)'", line)
         if entry:
-            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?\d+(flash_\w+_kernel)", r"\1", entry.group(1))
+            name = _kernel_name(entry.group(1))
         elif "spill" in line or "Used" in line:
             print(f"  {name}: {line.split(':', 1)[-1].strip()}")
     return 0
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_mma_kernel<D=48, causal=0, NW=8>`` from the mangled name
+    of an instantiation (template arguments ``Li48E``, ``Lb0E``, ``Li8E``)."""
+    m = re.search(r"(flash_(?:fwd|bwd)\w*?_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{', '.join(f'{k}={v}' for k, v in zip(('D', 'causal', 'NW'), args))}>"
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@
 // attention.py: `_fwd` (:111, body `_fwd_kernel` :47) and `_bwd` (:152, body
 // `_bwd_kernel` :70), the custom VJP of `flash_attention` (:194-210).
 //
-// Rows r = batch x head of (R, L, D) q, k, v, D in {64, 128}, fp32. The
+// Rows r = batch x head of (R, L, D) q, k, v, D in {48, 64, 128}, fp32. The
 // forward computes o = softmax(q k^T * scale) v under an optional causal
 // mask and a key mask (uint8, row r reads mask row r / mask_div) and saves
 // the row log-sum-exp in fp32. A query row whose keys are all masked gets
@@ -449,6 +449,8 @@ cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void*
                                        int rows, int L, int D, int mask_div,
                                        bool causal, float scale, cudaStream_t stream) {
   if (rows == 0 || L == 0) return cudaSuccess;
+  if (D == 48)
+    return fwd<float, 48>(q, k, v, mask, o, lse, rows, L, mask_div, causal, scale, stream);
   if (D == 64)
     return fwd<float, 64>(q, k, v, mask, o, lse, rows, L, mask_div, causal, scale, stream);
   if (D == 128)
@@ -463,6 +465,9 @@ cudaError_t flash_attention_bwd_launch(const void* q, const void* k, const void*
                                        int rows, int L, int D, int mask_div,
                                        bool causal, float scale, cudaStream_t stream) {
   if (rows == 0 || L == 0) return cudaSuccess;
+  if (D == 48)
+    return bwd<float, 48>(q, k, v, o, dout, lse, mask, delta, dq, dk, dv, rows, L,
+                          mask_div, causal, scale, stream);
   if (D == 64)
     return bwd<float, 64>(q, k, v, o, dout, lse, mask, delta, dq, dk, dv, rows, L,
                           mask_div, causal, scale, stream);

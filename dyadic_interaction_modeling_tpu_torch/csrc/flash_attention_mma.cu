@@ -7,7 +7,7 @@
 // `_bwd_kernel` :70), the custom VJP of `flash_attention` (:194-210).
 //
 // What it computes is flash_attention.cu's: rows r = batch x head of
-// (R, L, D) q, k, v, D in {64, 128}; o = softmax(q k^T * scale) v under an
+// (R, L, D) q, k, v, D in {48, 64, 128}; o = softmax(q k^T * scale) v under an
 // optional causal mask and a key mask (uint8, row r reads mask row
 // r / mask_div); the row log-sum-exp in fp32, natural log, +inf for a query
 // row whose keys are all masked, which gets o = 0 and exactly 0 gradients.
@@ -33,12 +33,14 @@
 //   under TMA's swizzle, a second rewrite of the tile loads, while mma.sync
 //   already comes within 10-30% of a library attention at these lengths.
 // * Tiles are 64 query rows by 64 keys; a block is four warps and a warp owns
-//   16 rows of its block's tile (the forward at D = 64 without a causal mask
+//   16 rows of its block's tile (the forward at D <= 64 without a causal mask
 //   takes eight warps, 128 query rows, on one stream of key tiles). Tiles sit
-//   in shared memory as bf16 with the 16-byte chunks of a row swizzled (mma_tile.cuh), so no ldmatrix has a
-//   bank conflict, and the tiles a loop walks over are double-buffered with
-//   cp.async: tile j + 1 is in flight while tile j is multiplied, one
-//   __syncthreads a tile. Rows past L are zero-filled by the copy itself.
+//   in shared memory as bf16 with the 16-byte chunks of a row swizzled
+//   (mma_tile.cuh; at D = 48 in rows 64 wide, two chunks a row unused), so
+//   no ldmatrix has a bank conflict, and the tiles a loop walks over are
+//   double-buffered with cp.async: tile j + 1 is in flight while tile j is
+//   multiplied, one __syncthreads a tile. Rows past L are zero-filled by the
+//   copy itself.
 // * S, P and dS never touch shared memory. The accumulator of S = Q K^T is
 //   masked, scaled and exponentiated in registers (exp2f with scale * log2 e
 //   folded into the scores; row max and row sum by shuffles over the four
@@ -110,18 +112,18 @@ __device__ __forceinline__ void scale_and_mask(float (&s)[2 * N16][4], float sca
 }
 
 // K2. Grid (query tiles, rows). A block is NW warps and takes 16 NW query
-// rows, which share the K and V tiles the block streams through. At D = 64 an
-// SM holds 16 warps of it, at 128 registers a thread.
+// rows, which share the K and V tiles the block streams through. At D = 48
+// and 64 an SM holds 16 warps of it, at 128 registers a thread.
 template <int D, bool CAUSAL, int NW>
-__global__ void __launch_bounds__(32 * NW, D == 64 ? 16 / NW : 1)
+__global__ void __launch_bounds__(32 * NW, D <= 64 ? 16 / NW : 1)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                      bf16* __restrict__ o, float* __restrict__ lse, int L, int mask_div,
                      float scale_log2, RowBlocks lay) {
-  constexpr int TILE = TILE_ROWS * D, Q_ROWS = 16 * NW, THREADS = 32 * NW;
+  constexpr int TILE = TILE_ROWS * tile_width(D), Q_ROWS = 16 * NW, THREADS = 32 * NW;
   extern __shared__ uint4 smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // the query tile, then o's staging
-  bf16* Ks = Qs + Q_ROWS * D;                    // STAGES buffers
+  bf16* Ks = Qs + Q_ROWS * tile_width(D);        // STAGES buffers
   bf16* Vs = Ks + STAGES * TILE;                 // STAGES buffers
   uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + STAGES * TILE);  // STAGES x 64 key flags
 
@@ -224,14 +226,14 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // K3, first pass: dq and delta. Grid (query tiles, rows).
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(MMA_THREADS, D == 64 ? BWD_MINB : 1)
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? BWD_MINB : 1)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
                         const bf16* __restrict__ dout, const float* __restrict__ lse,
                         const uint8_t* __restrict__ mask, float* __restrict__ delta,
                         bf16* __restrict__ dq, int L, int mask_div, float scale,
                         RowBlocks lay) {
-  constexpr int TILE = TILE_ROWS * D;
+  constexpr int TILE = TILE_ROWS * tile_width(D);
   extern __shared__ uint4 smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // then dq's staging
   bf16* dOs = Qs + TILE;
@@ -335,14 +337,14 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // K3, second pass: dk and dv, from the first pass's delta. Grid (key tiles,
 // rows). Accumulator rows are keys and columns queries here.
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(MMA_THREADS, D == 64 ? BWD_MINB : 1)
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? BWD_MINB : 1)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
                           bf16* __restrict__ dv, int L, int mask_div, float scale,
                           RowBlocks lay) {
-  constexpr int TILE = TILE_ROWS * D;
+  constexpr int TILE = TILE_ROWS * tile_width(D);
   extern __shared__ uint4 smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // then dk's staging
   bf16* Vs = Ks + TILE;                          // then dv's staging
@@ -442,7 +444,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   store_rows<D>(dv_acc, 1.f, 1.f, Vs, m0, dv + base, k0, L, lay.row_stride, lane);
 }
 
-constexpr size_t tile_bytes(int D) { return (size_t)TILE_ROWS * D * sizeof(bf16); }
+constexpr size_t tile_bytes(int D) { return (size_t)TILE_ROWS * tile_width(D) * sizeof(bf16); }
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -457,9 +459,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const uint8_t* mask
   // eight warps on one stream of key tiles halve the tile reads of four; under
   // a causal mask half of them would idle on the diagonal tiles, and four are
   // faster
-  constexpr int NW = D == 64 && !CAUSAL ? 8 : 4, Q_ROWS = 16 * NW, THREADS = 32 * NW;
-  const size_t smem =
-      (Q_ROWS * D + 2 * STAGES * TILE_ROWS * D) * sizeof(bf16) + STAGES * TILE_ROWS;
+  constexpr int NW = D <= 64 && !CAUSAL ? 8 : 4, Q_ROWS = 16 * NW, THREADS = 32 * NW;
+  const size_t smem = (Q_ROWS / TILE_ROWS + 2 * STAGES) * tile_bytes(D) + STAGES * TILE_ROWS;
   const cudaError_t err = allow_smem(flash_fwd_mma_kernel<D, CAUSAL, NW>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + Q_ROWS - 1) / Q_ROWS, rows);
@@ -508,6 +509,10 @@ cudaError_t flash_attention_mma_fwd_launch(const void* q, const void* k, const v
   const RowBlocks lay{batch_stride, head_stride, row_stride, heads};
 #define FLASH_FWD(D_, C_) \
   return fwd<D_, C_>(q, k, v, mask, o, lse, rows, L, mask_div, scale, lay, stream)
+  if (D == 48) {
+    if (causal) FLASH_FWD(48, true);
+    FLASH_FWD(48, false);
+  }
   if (D == 64) {
     if (causal) FLASH_FWD(64, true);
     FLASH_FWD(64, false);
@@ -534,6 +539,10 @@ cudaError_t flash_attention_mma_bwd_launch(const void* q, const void* k, const v
 #define FLASH_BWD(D_, C_)                                                             \
   return bwd<D_, C_>(q, k, v, o, dout, lse, mask, delta, dq, dk, dv, rows, L, mask_div, \
                      scale, lay, stream)
+  if (D == 48) {
+    if (causal) FLASH_BWD(48, true);
+    FLASH_BWD(48, false);
+  }
   if (D == 64) {
     if (causal) FLASH_BWD(64, true);
     FLASH_BWD(64, false);

@@ -32,7 +32,7 @@ cudaError_t decode_attention_launch(const void* q, const void* k, const void* v,
                                     bool bf16, cudaStream_t stream);
 
 // K2 in fp32, flash_attention.cu. q, k, v and o (rows, L, D) contiguous,
-// D in {64, 128}; lse (rows, L) fp32. mask as for K1 (null: none).
+// D in {48, 64, 128}; lse (rows, L) fp32. mask as for K1 (null: none).
 cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                        const uint8_t* mask, void* o, float* lse,
                                        int rows, int L, int D, int mask_div,

@@ -43,17 +43,24 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// A tile is 64 rows of D bf16, D / 8 chunks of 16 bytes a row. Chunk c of
-// row r sits at chunk c ^ (r % 8) of its row, so the eight rows that one
-// ldmatrix phase reads at a fixed c fall into eight different bank groups.
+// A tile is 64 rows of D bf16, D / 8 chunks of 16 bytes a row, in rows of
+// tile_width(D) elements. Chunk c of row r sits at chunk c ^ (r % 8) of its
+// row, so the eight rows that one ldmatrix phase reads at a fixed c fall into
+// eight different bank groups. The swizzle needs rows of a multiple of eight
+// chunks: at D = 48 a row is 64 wide, its six chunks take six of the eight
+// swizzled places and the other two are never written or read (products run
+// over D / 16 k slices and D / 8 n tiles, stores over D / 8 chunks), so HBM
+// is neither padded nor read beyond D.
+__host__ __device__ constexpr int tile_width(int D) { return (D + 63) / 64 * 64; }
+
 template <int D>
 __device__ __forceinline__ bf16* chunk_ptr(bf16* tile, int row, int chunk) {
-  return tile + (row * (D / 8) + (chunk ^ (row & 7))) * 8;
+  return tile + (row * (tile_width(D) / 8) + (chunk ^ (row & 7))) * 8;
 }
 
 template <int D>
 __device__ __forceinline__ const bf16* chunk_ptr(const bf16* tile, int row, int chunk) {
-  return tile + (row * (D / 8) + (chunk ^ (row & 7))) * 8;
+  return tile + (row * (tile_width(D) / 8) + (chunk ^ (row & 7))) * 8;
 }
 
 // Starts the copy, by the block's THREADS threads, of rows [l0, l0 + ROWS) of

@@ -1,16 +1,18 @@
 """Batching and padding of ragged clips (reference ``pad_collate``).
 
-A copy of ``pad_collate``, ``PaddedBatchLoader`` and
+A copy of ``bucket_length``, ``pad_collate``, ``PaddedBatchLoader`` and
 ``slm_batch_from_collated`` from ``dyadic_interaction_modeling_tpu/
-data/loader.py``. Lengths are padded up to a power-of-two bucket, as there,
-so both packages see the same padded batches.
+data/loader.py``, and of the VQ training collate of
+``dyadic_interaction_modeling_tpu/cli/train_vq.py:25-37`` (``vq_collate``).
+Lengths are padded up to a power-of-two bucket, as there, so both packages
+see the same padded batches.
 """
 
 from __future__ import annotations
 
 import math
 import random
-from typing import Iterator, Sequence, Tuple
+from typing import Callable, Iterator, Sequence, Tuple
 
 import numpy as np
 
@@ -44,15 +46,30 @@ def pad_collate(batch: Sequence[Tuple], min_bucket: int = 32, max_len: int = 102
     return src, tgt, lens, mask, (sp_ids, li_ids), names
 
 
-class PaddedBatchLoader:
-    """Minimal batch loader over an indexable dataset, yielding
-    ``pad_collate`` tuples (shuffled with ``seed + epoch`` when ``shuffle``)."""
+def vq_collate(batch: Sequence[Tuple], min_bucket: int = 32, max_len: int = 1024
+               ) -> np.ndarray:
+    """Single-stream clips (motion first in each item) -> a dense (B, L, C)
+    batch: L is the bucket of the longest clip, at most ``max_len``, and each
+    clip is padded by repeating its last frame (the reference trains its VQs
+    on dense clips without lengths, at batch size 1)."""
+    xs = [b[0] for b in batch]
+    L = bucket_length(max(len(x) for x in xs), min_bucket, max_len)
+    return np.stack([np.concatenate(
+        [x[:L], np.repeat(x[-1:], max(0, L - len(x)), axis=0)], axis=0) for x in xs])
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0):
+
+class PaddedBatchLoader:
+    """Minimal batch loader over an indexable dataset, yielding ``collate``
+    of each batch (``pad_collate`` tuples by default; shuffled with
+    ``seed + epoch`` when ``shuffle``)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 collate: Callable = pad_collate):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.collate = collate
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -66,7 +83,7 @@ class PaddedBatchLoader:
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
         for i in range(0, len(idx), self.batch_size):
-            yield pad_collate([self.dataset[j] for j in idx[i: i + self.batch_size]])
+            yield self.collate([self.dataset[j] for j in idx[i: i + self.batch_size]])
 
 
 def slm_batch_from_collated(collated) -> Tuple:

@@ -3,10 +3,12 @@
 Counterpart of ``dyadic_interaction_modeling_tpu/engine/pt_engine.py``:
 
 * ``make_slm_train_step``, ``train_epoch``, ``evaluate_epoch`` (:51-162):
-  one optimizer step of the SLM pretraining loss, with global-norm clipping
-  over the trainable parameters and, on the card, bf16 autocast over fp32
-  parameters (the counterpart of flax ``dtype=bfloat16`` with fp32
-  ``param_dtype``);
+  one optimizer step of the SLM pretraining loss or the SLMFT finetune loss,
+  with global-norm clipping over the trainable parameters and, on the card,
+  bf16 autocast over fp32 parameters (the counterpart of flax
+  ``dtype=bfloat16`` with fp32 ``param_dtype``);
+* ``evaluate_finetune_epoch`` (:165-187): SLMFT's teacher-forced
+  predictions for the metric battery;
 * ``make_slmft_generator`` (:195-318) runs the N resamples of every clip as
   ONE batched generate whose N*B0 rows share the B0 clips' cross-attention
   context (``context_groups``), then decodes the tokens to motion; the
@@ -42,8 +44,8 @@ def make_slm_train_step(model, optimizer: torch.optim.Optimizer, clip_norm: floa
     """(batch, generator=None, noise=None) -> logs: one optimizer step.
 
     batch = (src_v, tgt, src_a, mask) tensors on the model's device;
-    ``generator`` draws the masking noise, or ``noise`` injects it (see
-    ``SLM.forward``). The forward runs under autocast to ``amp_dtype`` when
+    ``model`` is SLM or SLMFT; ``generator`` draws the masking noise, or
+    ``noise`` injects it (see ``SLM.forward``, ``SLMFT.forward``). The forward runs under autocast to ``amp_dtype`` when
     given; the cross-entropy's log-softmax stays fp32. The gradients of the
     optimizer's parameters are clipped to a global norm of ``clip_norm``
     (none when 0). Returns the six logs as detached device tensors, so a
@@ -93,6 +95,38 @@ def evaluate_epoch(model, loader: Iterable, generator: Optional[torch.Generator]
             sums[k] = sums.get(k, 0.0) + float(v)
         n += 1
     return {k: v / max(n, 1) for k, v in sums.items()}
+
+
+@torch.no_grad()
+def evaluate_finetune_epoch(model: SLMFT, loader: Iterable,
+                            generator: Optional[torch.Generator] = None,
+                            amp_dtype: Optional[torch.dtype] = None,
+                            noises: Optional[Iterable[torch.Tensor]] = None
+                            ) -> Tuple[List, List, List, List]:
+    """Teacher-forced predictions for the metric battery
+    (x_engine_pt.py:201-230) over tensor batches (src_v, tgt, src_a, mask
+    [, ids]). The inputs are corrupted as in training (``SLMFT.forward``),
+    by noise drawn from ``generator`` or taken from ``noises``, one (B, L-1)
+    tensor a batch. Returns (y_trues, y_preds, x, data_ids), lists of
+    per-clip numpy arrays of length len - 1."""
+    y_trues, y_preds, xs, ids = [], [], [], []
+    noises = iter(noises) if noises is not None else None
+    for batch in loader:
+        src_v, tgt, src_a, mask = batch[:4]
+        data_ids = batch[4] if len(batch) > 4 else [None] * src_v.shape[0]
+        noise = next(noises) if noises is not None else None
+        with _autocast(src_v.device, amp_dtype):
+            pred = model(src_v, tgt, src_a, mask, generator=generator, noise=noise).pred
+        pred = pred.float().cpu().numpy()
+        lens = mask.sum(dim=1).cpu().numpy()
+        tgt_np, src_np = tgt.cpu().numpy(), src_v.cpu().numpy()
+        for j in range(src_np.shape[0]):
+            lj = int(lens[j])
+            y_preds.append(pred[j, : lj - 1])
+            y_trues.append(tgt_np[j, 1:lj])
+            xs.append(src_np[j, : lj - 1])
+            ids.append(data_ids[j])
+    return y_trues, y_preds, xs, ids
 
 
 def make_slmft_generator(model: SLMFT) -> Callable:

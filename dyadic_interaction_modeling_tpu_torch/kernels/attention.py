@@ -93,10 +93,16 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# the head widths the kernels are built for: 64 and 128 for the SLM stack, 48
+# for the VQ-VAEs' 384 / 8
+KERNEL_D = (48, 64, 128)
+
+
 def _check(name: str, q: torch.Tensor, tensors, key_mask) -> None:
-    if q.dim() != 3 or q.shape[2] not in (64, 128):
-        raise ValueError(f"{name}: q must be (R, L, D) with D in (64, 128), "
-                         f"got {tuple(q.shape)}")
+    if q.dim() != 3 or q.shape[2] not in KERNEL_D:
+        raise ValueError(f"{name}: q must be (R, L, D) with D in {KERNEL_D}, got "
+                         f"shape {tuple(q.shape)}" + (f", D = {q.shape[2]}" if q.dim() == 3
+                                                      else ""))
     if q.shape[0] > 65535:
         raise ValueError(f"{name}: at most 65535 rows, got {q.shape[0]}")
     for t_name, x in tensors:

@@ -2,8 +2,8 @@
 
 Counterpart of ``dyadic_interaction_modeling_tpu/models/slm.py:57-358``
 (seq2seq_pretrain.py:72-514): the frozen VQ tokenizers, the continuous
-encoders, the cross-predicting token decoder and, for SLM, the pretraining
-losses. Each module holds exactly the parameters of the JAX package's tree,
+encoders, the cross-predicting token decoder and the training losses: SLM's
+pretraining and SLMFT's listener finetune. Each module holds exactly the parameters of the JAX package's tree,
 under the reference state_dict keys, so weights move between the two with
 ``load_state_dict(strict=True)``. Shared by both (``_SLMBase``): the speaker
 and listener VQs, ``encoder_s``, ``encoder_joint``, the four patch
@@ -31,12 +31,22 @@ from .xtrans import (
     TokenDecoder,
     ar_cross_entropy,
     ar_inputs_targets,
+    ar_mask_prob_kv_mask,
 )
 
 # SLM's frozen parameters (seq2seq_pretrain.py:100-113): the VQ quantizers
 # and encoders; the VQ decoders train. Module-name prefixes of the port.
 SLM_FROZEN = ("speaker_vq.quantize", "speaker_vq.encoder",
               "listener_vq.quantize", "listener_vq.encoder")
+# SLMFT's (seq2seq_pretrain.py:352-366): both VQs whole
+SLMFT_FROZEN = ("speaker_vq", "listener_vq")
+# what an SLM state_dict holds that SLMFT has no module for; dropped by name
+# when a pretrained SLM is grafted into SLMFT (``utils.checkpoint.partial_load``)
+SLM_ONLY = ("encoder_l.", "norm_l.", "norm.", "speaker_vq.decoder.",
+            "decoder_joint.net.pos_emb.")
+# the fraction of decoder inputs the finetune corrupts (the
+# AutoregressiveWrapper's mask_prob, seq2seq_pretrain.py:386)
+AR_MASK_PROB = 0.15
 
 
 def random_masking_unstructured(noise: torch.Tensor, valid_mask: torch.Tensor,
@@ -87,6 +97,7 @@ def continuous_loss(pred: torch.Tensor, target: torch.Tensor,
 class SLMOutputs(NamedTuple):
     total_loss: torch.Tensor
     logs: Dict[str, torch.Tensor]
+    pred: Optional[torch.Tensor] = None  # SLMFT: teacher-forced motion (B, L-1, 56)
 
 
 class _ARWrapper(nn.Module):
@@ -237,8 +248,8 @@ class SLM(_SLMBase):
 
 
 class SLMFT(_SLMBase):
-    """Listener finetune / eval model: the generation side
-    (seq2seq_pretrain.py:325-514)."""
+    """Listener finetune and eval model (seq2seq_pretrain.py:325-514): the
+    teacher-forced finetune (``forward``) and the generation side."""
 
     def __init__(self, cfg, vq_cfg):
         super().__init__(cfg, vq_cfg, pretrain=False)
@@ -257,6 +268,48 @@ class SLMFT(_SLMBase):
     def decoder_context(self, x_s: torch.Tensor, x_a: torch.Tensor) -> torch.Tensor:
         return torch.cat([x_s + self.patch_embed_dec_s.to(x_s.dtype),
                           x_a.to(x_s.dtype)], dim=-1)
+
+    def decode_train(self, x_s, z_l, x_a, valid_mask, noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced decoding with the inputs corrupted: AR_MASK_PROB of
+        each row's input codes are hidden from the causal self-attention by
+        a key mask chosen by standard-normal ``noise`` (B, L-1), drawn from
+        ``generator`` when absent. (CE, logits)."""
+        inp, tgt = ar_inputs_targets(z_l)
+        kv_mask = ar_mask_prob_kv_mask(inp.shape[0], inp.shape[1], AR_MASK_PROB, noise,
+                                       generator, inp.device)
+        logits = self.decoder(inp, context=self.decoder_context(x_s, x_a),
+                              self_key_mask=kv_mask, context_mask=valid_mask)
+        return ar_cross_entropy(logits, tgt), logits
+
+    def forward_vq_decoder_train(self, logits_l: torch.Tensor) -> torch.Tensor:
+        """Argmax codes decoded without lengths (the reference quirk, as
+        ``SLM.forward_vq_decoder``)."""
+        return self.listener_vq.decode_indices(logits_l.argmax(dim=-1))
+
+    def forward(self, v_speaker: torch.Tensor, v_listener: torch.Tensor,
+                v_audio: torch.Tensor, valid_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None) -> SLMOutputs:
+        """The finetune loss (listener CE + continuous loss), SLM's six logs
+        (the speaker and contrastive ones 0) and the teacher-forced motion.
+
+        ``noise``: the standard-normal (B, L-1) noise that picks the
+        corrupted inputs; drawn from ``generator`` when absent. The
+        corruption applies in evaluation too, as the JAX package's
+        ``evaluate_finetune_epoch`` passes an rng and x-transformers applies
+        ``mask_prob`` whatever the mode."""
+        with torch.no_grad():  # stop_gradient (slm.py:338)
+            _, z_l = self.forward_vq(v_speaker, v_listener, valid_mask)
+        x_s = self.forward_encoder(v_speaker, valid_mask)
+        l_ce_l, logits_l = self.decode_train(x_s, z_l, v_audio, valid_mask, noise, generator)
+        pred_l = self.forward_vq_decoder_train(logits_l)
+        l_cont_l = continuous_loss(pred_l, v_listener.to(self.dtype), valid_mask)
+        zero = torch.zeros((), device=valid_mask.device)
+        logs = {"l_ce_s": zero, "l_ce_l": l_ce_l, "l_cont_s": zero, "l_cont_l": l_cont_l,
+                "nce": zero, "c_acc": zero}
+        return SLMOutputs(l_ce_l + l_cont_l, logs, pred_l)
 
     def encode_context(self, v_speaker, v_listener, v_audio, valid_mask
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,13 +1,16 @@
 """VQ-VAE facial-motion tokenizers, BIWI variant (stage1_BIWI.py:10-411).
 
-Counterpart of ``dyadic_interaction_modeling_tpu/models/vq_vae.py:58-222``.
-Module keys follow ``stage1_BIWI`` so a reference state_dict loads with
-``strict=True``. Tensors are (B, L, C) at every public function.
+Counterpart of ``dyadic_interaction_modeling_tpu/models/vq_vae.py:58-262``:
+the tokenizer's encode and decode, the training forward (reconstruction,
+quantization loss and perplexity) and the code-space utilities. Module keys
+follow ``stage1_BIWI`` so a reference state_dict loads with ``strict=True``.
+Motion is (B, L, C) at every public function, quantized latents (B, C, L)
+as the reference keeps them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -16,6 +19,13 @@ from ..ops.convseq import ConvExpander, ConvSquasher
 from ..ops.positional import PositionalEncoding
 from ..ops.quantizer import VectorQuantizer
 from ..ops.transformer import LinearEmbedding, Transformer
+
+
+class VQEncodeResult(NamedTuple):
+    quant: torch.Tensor       # (B, zquant_dim, L*fq) straight-through latents
+    emb_loss: torch.Tensor    # scalar commitment + codebook loss
+    perplexity: torch.Tensor  # scalar codebook-usage perplexity
+    indices: torch.Tensor     # (B, L*fq) int32 codes
 
 
 def _key_mask(lengths: Optional[torch.Tensor], l: int, device) -> Optional[torch.Tensor]:
@@ -100,22 +110,61 @@ class VQAutoEncoder(nn.Module):
             self.decoder = TransformerDecoder(cfg, cfg.in_dim)
         self.quantize = VectorQuantizer(cfg.n_embed, cfg.zquant_dim, beta=0.25)
 
+    def encode(self, x: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None) -> VQEncodeResult:
+        """(B, L, C) [+ lengths] -> quantized latents, loss, perplexity and
+        codes."""
+        h = self.encoder(x, lengths)
+        b, l, _ = h.shape
+        q = self.quantize(h.reshape(b, l * self.face_quan_num, self.zquant_dim))
+        return VQEncodeResult(q.z_q, q.loss, q.perplexity, q.indices)
+
     def encode_indices(self, x: torch.Tensor,
                        lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, L, C) [+ lengths] -> (B, L*fq) int32 codes."""
-        h = self.encoder(x, lengths)
-        b, l, _ = h.shape
-        h = h.reshape(b, l * self.face_quan_num, self.zquant_dim)
-        return self.quantize(h).indices
+        return self.encode(x, lengths).indices
 
-    def decode_indices(self, indices: torch.Tensor,
-                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, L*fq) codes -> (B, L, in_dim) motion; ``lengths`` (token level)
-        gives the per-sample-equivalent masked decode. Without it, row b of
-        the batch gets positional encoding b (the reference quirk)."""
-        z_q = self.quantize.get_codebook_entry(indices)
-        b = indices.shape[0]
-        h = z_q.reshape(b, -1, self.face_quan_num * self.zquant_dim)
+    def decode(self, quant: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, zquant_dim, L*fq) latents -> (B, L, in_dim) motion; ``lengths``
+        (token level) gives the per-sample-equivalent masked decode. Without
+        it, row b of the batch gets positional encoding b (the reference
+        quirk)."""
+        b = quant.shape[0]
+        h = quant.transpose(1, 2).reshape(b, -1, self.face_quan_num * self.zquant_dim)
         if lengths is not None:
             lengths = lengths // self.face_quan_num
         return self.decoder(h, lengths)
+
+    def decode_indices(self, indices: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, L*fq) codes -> (B, L, in_dim) motion, through the codebook."""
+        return self.decode(self.quantize.get_codebook_entry(indices).transpose(1, 2), lengths)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, VQEncodeResult]:
+        """The training pass: (reconstruction, quantization loss, encode
+        result)."""
+        enc = self.encode(x)
+        return self.decode(enc.quant), enc.emb_loss, enc
+
+    def get_quant(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        enc = self.encode(x)
+        return enc.quant, enc.indices
+
+    def get_distances(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, C) motion -> (B, L*fq, n_embed) squared code distances."""
+        h = self.encoder(x)
+        b, l, _ = h.shape
+        h = h.reshape(b, l * self.face_quan_num, self.zquant_dim)
+        return self.quantize.get_distance(h.transpose(1, 2))
+
+    def decode_to_img(self, indices: torch.Tensor, zshape: Tuple[int, int, int]
+                      ) -> torch.Tensor:
+        """Codes of any shape, looked up as (B, L, C) ``zshape``, decoded."""
+        z_q = self.quantize.get_codebook_entry(indices.reshape(-1)).reshape(zshape)
+        return self.decode(z_q.transpose(1, 2))
+
+    def entry_to_feature(self, indices: torch.Tensor, zshape: Tuple[int, ...]
+                         ) -> torch.Tensor:
+        return self.quantize.get_codebook_entry(indices.reshape(-1)).reshape(zshape)

@@ -369,6 +369,29 @@ def ar_inputs_targets(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.where(inp == IGNORE, 0, inp), target
 
 
+def ar_mask_prob_kv_mask(batch: int, seq: int, mask_prob: float,
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         device=None) -> torch.Tensor:
+    """The AutoregressiveWrapper's ``mask_prob`` input corruption as a
+    self-attention key mask (B, seq), True = attend: the
+    ``floor(seq * mask_prob)`` positions of largest standard-normal ``noise``
+    in each row are masked, never position 0. ``noise`` (B, seq) is injected
+    or drawn from ``generator``, so a test can feed the JAX package's
+    ``jax.random.normal`` draw."""
+    num_mask = min(int(seq * mask_prob), seq - 1)
+    if noise is not None:
+        device = noise.device
+    keep = torch.ones(batch, seq, dtype=torch.bool, device=device)
+    if num_mask <= 0:
+        return keep
+    if noise is None:
+        noise = torch.randn(batch, seq, generator=generator, device=device)
+    rand = noise.float().clone()
+    rand[:, 0] = NEG_INF
+    return keep.scatter(1, rand.topk(num_mask, dim=1).indices, False)
+
+
 def ar_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Token CE in fp32, mean over the targets that are not -100; 0 when
     none is kept (where ``F.cross_entropy(ignore_index=-100)`` gives NaN)."""

@@ -1,6 +1,7 @@
 """Vector quantization, the VQ-VAE bottleneck (reference quantizer.py:14-91).
 
-Counterpart of ``dyadic_interaction_modeling_tpu/ops/quantizer.py:52-148``.
+Counterpart of ``dyadic_interaction_modeling_tpu/ops/quantizer.py:52-148``
+(``vq_distances`` :101).
 ``nearest_code`` runs the K4 kernel on CUDA tensors and its plain version on
 CPU tensors (``kernels/vq.py``).
 """
@@ -45,6 +46,16 @@ def vq_quantize(z: torch.Tensor, codebook: torch.Tensor,
                     perplexity=perplexity, indices=idx.reshape(b, l))
 
 
+def vq_distances(z_bcl: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Squared distances of every latent to every code, the reference's
+    ``get_distance``: z (B, C, L) -> (B, L, n_e), in fp32."""
+    b, c, l = z_bcl.shape
+    z = z_bcl.transpose(1, 2).reshape(-1, c).float()
+    e = codebook.float()
+    d = (z * z).sum(dim=1, keepdim=True) + (e * e).sum(dim=1)[None, :] - 2.0 * (z @ e.T)
+    return d.reshape(b, l, -1)
+
+
 def vq_codebook_lookup(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Reference ``get_codebook_entry``: gather codebook rows."""
     return codebook[indices.long()]
@@ -62,6 +73,9 @@ class VectorQuantizer(nn.Module):
 
     def forward(self, z: torch.Tensor) -> VQResult:
         return vq_quantize(z, self.embedding.weight.to(z.dtype), self.beta)
+
+    def get_distance(self, z_bcl: torch.Tensor) -> torch.Tensor:
+        return vq_distances(z_bcl, self.embedding.weight)
 
     def get_codebook_entry(self, indices: torch.Tensor) -> torch.Tensor:
         return vq_codebook_lookup(indices, self.embedding.weight)

@@ -13,8 +13,14 @@ Reproduced reference quirks:
 * GELU is the tanh approximation;
 * LayerNorm eps is 1e-5.
 
-Attention is a plain ``torch.matmul`` + softmax. The JAX package runs it
-outside any Pallas kernel at the slice's length (L=256).
+Attention over L >= ``FLASH_MIN_LEN`` keys without a mask, or with only a
+(B, 1, Lk) key mask, goes through ``kernels.attention.flash_attention`` (K2
+forward, K3 backward; D = 384 / 8 = 48 at full width), the counterpart of
+the JAX package's Pallas route (``ops/transformer.py:98-103``); every other
+attention is a plain ``torch.matmul`` + softmax (``attend``). The JAX
+package's window, 512 <= L <= 1024, was set by TPU timings: the port keeps
+its lower edge as a starting point and drops the upper one, since K2/K3 take
+any L.
 """
 
 from __future__ import annotations
@@ -24,6 +30,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.attention import flash_attention
+
+# shortest sequence that takes K2/K3 (the JAX package's lower edge; not yet
+# set from H100 timings)
+FLASH_MIN_LEN = 512
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -61,9 +73,22 @@ class Attention(nn.Module):
         """mask: (Lq, Lk) or (B, Lq, Lk) (a (B, 1, Lk) key mask broadcasts)."""
         q, k, v = (split_heads(t, self.heads)
                    for t in self.to_qkv(x).chunk(3, dim=-1))
+        key_mask = mask[:, 0] if mask is not None and mask.dim() == 3 and mask.shape[1] == 1 \
+            else None
+        if (mask is None or key_mask is not None) and k.shape[2] >= FLASH_MIN_LEN:
+            return self.to_out(self._flash(q, k, v, key_mask))
         if mask is not None:
             mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
         return self.to_out(merge_heads(attend(q, k, v, self.scale, mask)))
+
+    def _flash(self, q, k, v, key_mask) -> torch.Tensor:
+        """(B, H, L, D) q, k, v as (B·H, L, D) rows, a (B, L) key mask shared
+        by each sample's H rows -> (B, L, H·D)."""
+        b, h, n, d = q.shape
+        rows = [t.reshape(b * h, n, d).contiguous() for t in (q, k, v)]
+        km = None if key_mask is None else key_mask.to(torch.bool).contiguous()
+        out = flash_attention(*rows, km, causal=False, scale=self.scale)
+        return merge_heads(out.reshape(b, h, n, d))
 
 
 class MLP(nn.Module):

@@ -124,6 +124,9 @@ def _run(lib, rows, l, d, causal, mask_kind, strided, seed):
     (4, 193, 64, False, "prefix", False),   # length masks: wholly masked key tiles
     (4, 65, 128, False, "prefix", False),   # a tail tile of one row
     (4, 130, 64, True, "random", True),     # (B, L, H, D) storage through the strides
+    (4, 200, 48, False, "random", False),   # D = 48: 6 chunks in 8-chunk swizzled rows
+    (4, 193, 48, False, "prefix", False),   # D = 48, length masks and a ragged tail
+    (4, 130, 48, True, "random", True),     # D = 48, causal and masked, strided
 ])
 def test_emulated_kernels_match_plain(lib, rows, l, d, causal, mask_kind, strided):
     got, want, mask = _run(lib, rows, l, d, causal, mask_kind, strided, seed=l + d)

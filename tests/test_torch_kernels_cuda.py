@@ -126,6 +126,9 @@ def test_nearest_code_kernel_orders_nan_as_the_plain_version(cuda):
     (4, 130, 128, True, True),    # D = 128
     (4, 129, 128, False, True),   # D = 128, a tail tile of one row
     (4, 2048, 64, False, True),   # enc_max_seq_len as the joint encoder reaches it
+    (8, 200, 48, False, True),    # D = 48 (the VQ-VAEs' heads), ragged tail, key mask
+    (8, 130, 48, True, True),     # D = 48, causal and masked
+    (6, 1024, 48, False, False),  # D = 48 at a VQ training clip's length, no mask
 ])
 def test_flash_attention_kernels_match_plain(cuda, dtype, tol, rows, l, d, causal, masked):
     """K2 (o, lse) and K3 (dq, dk, dv) against their plain versions; errors
@@ -216,8 +219,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                      torch.randn(4, 16, device="cuda").half())
     from dyadic_interaction_modeling_tpu_torch.kernels.attention import flash_attention_fwd
 
-    x = torch.randn(4, 32, 48, device="cuda")
-    with pytest.raises(ValueError, match="D in"):
+    x = torch.randn(4, 32, 40, device="cuda")
+    with pytest.raises(ValueError, match="D = 40"):
         flash_attention_fwd(x, x, x, causal=False, scale=0.1)
     x = torch.randn(4, 32, 64, device="cuda")
     with pytest.raises(ValueError, match="key_mask"):

@@ -179,6 +179,21 @@ def test_k4_plain_orders_nan_as_jax():
     assert (out[np.arange(20) != 4] == 17).all()
 
 
+@pytest.mark.parametrize("d", [48, 64, 128, 40])
+def test_k23_head_widths_the_kernels_take(d):
+    """K2/K3 are built for D in {48, 64, 128} (48: the VQ-VAEs' 384 / 8
+    heads); the wrapper's check, which runs before every launch on the card,
+    refuses any other D and names it."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import KERNEL_D, _check
+
+    x = torch.zeros(4, 32, d)
+    if d in KERNEL_D:
+        _check("flash_attention_fwd", x, (("k", x), ("v", x)), None)
+    else:
+        with pytest.raises(ValueError, match=f"D = {d}"):
+            _check("flash_attention_fwd", x, (("k", x), ("v", x)), None)
+
+
 def test_build_compiles_every_source_in_csrc():
     """A kernel source left out of ``kernels/build.py`` would never be built;
     the binding and the kernels share one header of launchers."""

@@ -40,20 +40,27 @@ def test_port_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 20
+    names = set(proc.stdout.split())
+    assert len(names) >= 20
+    # the training stages' modules (VQ tokenizer training, SLMFT finetune)
+    assert {f"dyadic_interaction_modeling_tpu_torch.{m}" for m in (
+        "cli.train_vq", "cli.finetune_s2s_pretrain", "engine.vq_engine",
+        "utils.checkpoint", "metrics.loss")} <= names
 
 
 def test_entry_points_default_to_cuda():
-    from dyadic_interaction_modeling_tpu_torch.cli import train_s2s_pretrain
+    from dyadic_interaction_modeling_tpu_torch.cli import (
+        finetune_s2s_pretrain, train_s2s_pretrain, train_vq)
     from dyadic_interaction_modeling_tpu_torch.cli.test_s2s_pretrain import get_parser
     from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import evaluate_test_epoch
 
     assert get_parser().parse_args(["--synthetic"]).device == "cuda"
-    assert train_s2s_pretrain.get_parser().parse_args(["--synthetic"]).device == "cuda"
+    for twin in (train_s2s_pretrain, train_vq, finetune_s2s_pretrain):
+        assert twin.get_parser().parse_args(["--synthetic"]).device == "cuda", twin.__name__
     assert inspect.signature(evaluate_test_epoch).parameters["device"].default == "cuda"
 
 

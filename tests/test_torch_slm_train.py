@@ -182,15 +182,16 @@ def test_step0_gradients_match_jax(pair, jax_ref):
                                    err_msg=k)
 
 
-def _jax_equivalent_adamw(tm, tcfg, lr, wd, eps=1e-8):
+def _jax_equivalent_adamw(tm, tcfg, lr, wd, eps=1e-8, frozen=TS.SLM_FROZEN):
     """``make_optimizer``'s AdamW, with the positional tables' hyperparameters
     mapped to the JAX package's parametrization. The port stores them as
     the reference does, times sqrt(dim) and read times dim ** -0.5, so Adam
     (invariant to the scale of a gradient, not of a parameter) moves their
     forward values sqrt(dim) times less per step than the JAX package, which
     stores the forward values (ROADMAP.md queue 3). lr * sqrt(dim),
-    wd / sqrt(dim) and eps / sqrt(dim) give the JAX package's update."""
-    opt = make_optimizer(tm, lr, wd, TS.SLM_FROZEN)
+    wd / sqrt(dim) and eps / sqrt(dim) give the JAX package's update.
+    ``frozen``: the model's frozen module prefixes (SLM's by default)."""
+    opt = make_optimizer(tm, lr, wd, frozen)
     pos = {k: p for k, p in tm.named_parameters() if k.endswith("pos_emb.emb.weight")}
     group = opt.param_groups[0]
     group["params"] = [p for p in group["params"] if all(p is not q for q in pos.values())]
