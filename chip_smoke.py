@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version, drive SLMFT best-of-10 listener generation
-(multi-head and grouped-query), the SLM pretraining step, the VQ-VAE
-tokenizer's training step and the SLMFT finetune step at full width, and
-time it all.
+(multi-head and grouped-query), the SLM pretraining step, the listener and
+speaker VQ-VAE tokenizers' training steps and the SLMFT finetune step at full
+width, then the four CLI twins on files in the reference's layout, and time
+it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -32,7 +33,9 @@ line):
    L = 255; the VQ-VAEs' head width D = 48 at scale 384 ** -0.5, (8, 1024,
    48) unmasked (VQ training, one clip) and (32, 512, 48) with ragged
    lengths (four clips tokenized); causal plus the finetune's corruption key
-   mask at (48, 255, 64). Tolerances: output fp32 2e-5, bf16 2e-2 (absolute and
+   mask at (48, 255, 64); the speaker VQ's D = 96 at scale 768 ** -0.5,
+   (8, 1024, 96) unmasked (its training clip) and (32, 512, 96) with ragged
+   lengths and one batch entry fully masked. Tolerances: output fp32 2e-5, bf16 2e-2 (absolute and
    relative); gradients 1e-4 (fp32) and 2e-2 (bf16) of the reference's
    largest magnitude. One bf16 case runs K2 and K3 twice: o, lse, dq, dk, dv
    bitwise equal (no atomics, a fixed order of sums);
@@ -63,7 +66,7 @@ line):
    latents it was given (``k4_on_path``; likewise in 10 and 11);
 9. times after warmup: the median of 3 best-of-10 generate calls (host
    clock); for each kernel at the main paths' shapes (K2/K3 in bf16, and
-   the D = 48 shapes in fp32 too), its plain version and
+   the D = 48 and 96 shapes in fp32 too), its plain version and
    one PyTorch library call on the same inputs where there is one
    (yardstick only, never on the port's path): ``ms``, the median of single
    launches each between its own pair of CUDA events (for K1 self, the
@@ -92,7 +95,22 @@ line):
     runs with the kernels and with the plain versions against the plain
     versions in fp64: on each leaf the kernels' error within 1e-3 or 4x the
     plain fp32 run's;
-12. the VQ attention at D = 48 by both routes (``attend`` and K2/K3),
+12. the audio-visual speaker VQ-VAE's training at full width
+    (``vq_speaker_defaults()``: hidden 768, 6 + 6 + 6 layers, 8 heads of 96,
+    8 codes a frame), fp32, one synthetic clip of 1024 frames of listener
+    motion || audio: steps timed and traced as in 10, with 18 K2, 18 K3 and
+    1 K4 (8192 latents) a step; then one fp32 step with the kernels, one
+    with the plain versions and one with the plain versions in fp64: codes
+    equal and metrics within 1e-5 between the fp32 runs, gradients against
+    fp64 as in 11 (``speaker_vq_train_reference`` says why);
+13. the four CLI twins' ``main()`` on ViCo and CANDOR files written in the
+    reference's layout (``real_files_path``): ``train_vq``, then
+    ``train_s2s_pretrain`` with the token cache and prefetching from the
+    VQ's checkpoint re-saved in the reference layout (K4 in epoch 1's steps,
+    0 in epoch 2's), ``finetune_s2s_pretrain`` from the pretrain checkpoint
+    and ``test_s2s_pretrain`` from the finetune checkpoint, with each
+    twin's launch counts;
+14. the VQ attention at D = 48 by both routes (``attend`` and K2/K3),
     forward and backward, graph-timed at L = 256 and 1024 in fp32 and bf16;
     then the ``kernels`` JSON line and, last, the device JSON line.
 
@@ -408,6 +426,7 @@ def k1_check():
 
 HEADS = 12
 VQ_SCALE = 384 ** -0.5  # the VQ-VAEs' full-width scale (reference quirk), D = 384 / 8
+SPK_SCALE = 768 ** -0.5  # the speaker VQ's, D = 768 / 8
 # (name, rows, L, D, heads, key mask, causal, scale, launches per SLM training
 # step); rows are batch x heads, a key mask (rows / heads, L): "prefix"
 # ragged lengths from L/2 to L, "random" the finetune's corruption (15% of
@@ -423,10 +442,14 @@ K23_CASES = (
     ("VQ tokenize B=4 (32,512,48) masked", 32, 512, 48, 8, "prefix", False, VQ_SCALE, 0),
     ("finetune decoder (48,255,64) causal+mask", 48, 255, 64, HEADS, "random", True, 0.125,
      0),
+    ("speaker VQ train (8,1024,96)", 8, 1024, 96, 8, None, False, SPK_SCALE, 0),
+    ("speaker VQ B=4 (32,512,96) masked", 32, 512, 96, 8, "prefix", False, SPK_SCALE, 0),
 )
 DEAD_CASE = 1  # index of the case with one fully masked batch entry, run twice in bf16
-# the D = 48 cases, timed in fp32 (VQ training's dtype) as well
-VQ_CASES = tuple(i for i, c in enumerate(K23_CASES) if c[3] == 48)
+# the cases with one fully masked batch entry (zero output and gradients)
+DEAD_CASES = (DEAD_CASE, len(K23_CASES) - 1)
+# the VQ-VAEs' cases (D = 48 and 96), timed in fp32 (VQ training's dtype) as well
+VQ_CASES = tuple(i for i, c in enumerate(K23_CASES) if c[3] in (48, 96))
 SOURCES = {torch.float32: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention.cu",
            torch.bfloat16: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention_mma.cu"}
 
@@ -460,7 +483,7 @@ def k23_check():
         e_o, e_g, e_ga = [], [], []
         for i, (name, rows, l, d, heads, mask_kind, causal, scale, _) in enumerate(K23_CASES):
             q, k, v, do, mask = _attn_inputs(rows, l, d, heads, dtype, g, mask_kind,
-                                             i == DEAD_CASE)
+                                             i in DEAD_CASES)
             kw = dict(causal=causal, scale=scale)
             o, lse = flash_attention_fwd(q, k, v, mask, **kw)
             ro, rlse = flash_attention_fwd_plain(q, k, v, mask, **kw)
@@ -478,8 +501,8 @@ def k23_check():
             err_ga = max(float((a.float() - b.float()).abs().max())
                          for a, b in zip(grads, refs))
             zero = True
-            if i == DEAD_CASE:
-                dead = slice(HEADS, 2 * HEADS)
+            if i in DEAD_CASES:
+                dead = slice(heads, 2 * heads)
                 zero = (float(o[dead].float().abs().max()) == 0.0 and all(
                     float(x[dead].float().abs().max()) == 0.0 for x in grads)
                     and bool(torch.isinf(lse[dead]).all()))
@@ -487,7 +510,7 @@ def k23_check():
                   f"K2/K3 {tag} {name}: o max abs err {float(diff.max()):.3g} "
                   f"(tol {tol_o}{' + rel' if rtol else ''}), lse {err_lse:.3g}, dq/dk/dv "
                   f"rel {err_g[0]:.3g}/{err_g[1]:.3g}/{err_g[2]:.3g} (tol {tol_g})"
-                  + (f", fully masked entry zero: {zero}" if i == DEAD_CASE else ""))
+                  + (f", fully masked entry zero: {zero}" if i in DEAD_CASES else ""))
             e_o.append(float(diff.max()))
             e_g.append(max(err_g))
             e_ga.append(err_ga)
@@ -1015,6 +1038,128 @@ def vq_train_reference():
     return {"loss_rel": max(rel.values()), "grad_rel": errs[worst], "k4": k4}
 
 
+SPK_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 18,
+                     "flash_attention_bwd": 18, "nearest_code": 1}
+
+
+def _spk_model(seed):
+    from dyadic_interaction_modeling_tpu_torch.config import vq_speaker_defaults
+    from dyadic_interaction_modeling_tpu_torch.models.vq_vae import VQSpeakerAutoEncoder
+
+    torch.manual_seed(seed)
+    return VQSpeakerAutoEncoder(vq_speaker_defaults())
+
+
+def _spk_clip(seed):
+    """One synthetic audio-visual clip of VQ_L frames, listener motion ||
+    audio (824 features), as ``train_vq``'s synthetic AV stream makes it."""
+    from dyadic_interaction_modeling_tpu_torch.data.synthetic import synthetic_vico_dataset
+
+    combined, listener = synthetic_vico_dataset(n_clips=1, min_len=VQ_L, max_len=VQ_L,
+                                                seed=seed)[0][:2]
+    clip = torch.cat([torch.as_tensor(listener), torch.as_tensor(combined[:, 56:])], dim=1)
+    return clip[None].to("cuda")
+
+
+@phase
+def speaker_vq_train_main_path():
+    """The audio-visual speaker VQ-VAE's training at full width
+    (vq_speaker_defaults: hidden 768, 6 + 6 + 6 layers, 8 heads of 96,
+    512 x 128 codes, 8 codes a frame), fp32, one clip of 1024 frames, AdamW
+    lr 1e-4 with weight decay 0.01 (train_vq's), the split AV loss. A step
+    runs K2 and K3 once in each of the 18 attention layers (encoder,
+    decoder_v, decoder_a) and K4 once, at N = 8 x 1024 latents."""
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.engine.vq_engine import make_vq_train_step
+
+    model = _spk_model(seed=0).to("cuda")
+    step = make_vq_train_step(model, make_optimizer(model, 1e-4, 0.01), audio_visual=True)
+    clip = _spk_clip(seed=21)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    med, times, launches, logs = _timed_steps(step, (clip,), "speaker VQ training",
+                                              SPK_STEP_LAUNCHES)
+    still = [k for k, p in model.named_parameters() if torch.equal(p, before[k])]
+    check(not still, f"all {len(before)} speaker VQ parameter tensors moved "
+          f"(unmoved: {still[:5]})")
+    say(f"speaker VQ train step B=1 L={VQ_L} fp32, CUDA events: median {med * 1e3:.2f} ms "
+        f"of {[round(t * 1e3, 2) for t in times]} -> {VQ_L / med:.0f} frames/s")
+    say(f"metrics of the first warmup step {_rounded(logs[0])}; of the last {_rounded(logs[-1])}")
+    windows, top = _trace_steps(step, (clip,), "speaker VQ training")
+    return {"launches": launches, "step_ms": med * 1e3, "step_runs_ms": [t * 1e3 for t in times],
+            "windows": windows, "top": [(n, t / 1e3, c) for n, t, c in top]}
+
+
+@phase
+def speaker_vq_train_reference():
+    """The speaker VQ's step on one AV clip of VQ_L frames, three times from
+    the same weights: fp32 with the kernels, fp32 with the plain versions,
+    and the plain versions in fp64 (``fp64_where_fp32``; the first run's
+    codes stand in K4's place, which takes fp32 only). Between the fp32
+    runs: codes equal, metrics within 1e-5 relative. Gradients, relative to
+    each leaf's largest magnitude: on the leaves where the plain fp32 run is
+    within 1e-4 of fp64, the kernels within 1e-3 of the plain fp32 run; on
+    every leaf, the kernels' error against fp64 within 1e-3 or within 4x the
+    plain fp32 run's. Some leaves of this model lose digits to cancellation
+    in fp32 whatever computes the attention (the sums over the frames that
+    share a code, the instance norms of the conv blocks): there two fp32 runs
+    differ by more than 1e-3 and only fp64 tells which is right. K4's codes
+    are held against ``nearest_code_plain`` on the latents it was given."""
+    from unittest import mock
+
+    from dyadic_interaction_modeling_tpu_torch.metrics.loss import calc_vq_loss_AV
+    from dyadic_interaction_modeling_tpu_torch.ops import quantizer
+
+    clip = _spk_clip(seed=22)
+    state = _spk_model(seed=1).state_dict()
+    runs, codes = [], None
+    for plain, dtype in ((False, torch.float32), (True, torch.float32), (True, torch.float64)):
+        model = _spk_model(seed=1)
+        model.load_state_dict(state)
+        model = model.to("cuda", dtype)
+        with contextlib.ExitStack() as stack:
+            calls = stack.enter_context(plain_attention() if plain else k4_calls())
+            if dtype == torch.float64:
+                stack.enter_context(fp64_where_fp32())
+                stack.enter_context(mock.patch.object(quantizer, "_nearest_code",
+                                                      lambda z, e: codes))
+            dec, emb_loss, enc = model(clip.to(dtype))
+            total, (rec, quant) = calc_vq_loss_AV(dec, clip.to(dtype), emb_loss)
+            total.backward()
+        if not plain:
+            k4 = k4_on_path(calls, "the speaker VQ step")
+            codes = enc.indices.reshape(-1)
+        runs.append(({"loss": float(total.detach()), "rec_loss": float(rec),
+                      "quant_loss": float(quant), "perplexity": float(enc.perplexity)},
+                     enc.indices, {k: p.grad.double() for k, p in model.named_parameters()
+                                   if p.grad is not None}))
+        del model
+    (lk, ck, gk), (lp, cp, gp), (_, _, g64) = runs
+    check(torch.equal(ck, cp), f"speaker VQ codes equal with the kernels and with the plain "
+          f"versions ({ck.numel()} codes)")
+    rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    check(max(rel.values()) <= 1e-5, f"fp32 speaker VQ step L={VQ_L}, kernels vs plain: "
+          f"metrics rel err {max(rel.values()):.3g} (tol 1e-5): {lk}")
+    ek, ep, ekp = _grad_errs(gk, g64), _grad_errs(gp, g64), _grad_errs(gk, gp)
+    sound = [k for k in g64 if ep[k] <= 1e-4]
+    worst = max(sound, key=ekp.get)
+    check(ekp[worst] <= 1e-3, f"gradients of the {len(sound)} speaker VQ leaves where the "
+          f"plain fp32 run is within 1e-4 of fp64: kernels vs plain within 1e-3 of each "
+          f"leaf's max, worst {ekp[worst]:.3g} ({worst})")
+    lossy = sorted((k for k in g64 if k not in sound), key=ep.get, reverse=True)
+    for k in lossy[:6]:
+        say(f"  {k}: off fp64 by {ek[k]:.3g} (kernels) and {ep[k]:.3g} (plain fp32); "
+            f"kernels vs plain {ekp[k]:.3g}")
+    bad = [k for k in g64 if ek[k] > max(1e-3, 4 * ep[k])]
+    check(not bad, f"speaker VQ gradients against fp64: the kernels' error within 1e-3 or 4x "
+          f"the plain fp32 run's on each of {len(g64)} leaves ({len(lossy)} leaves where "
+          f"the plain fp32 run is past 1e-4; worst kernel error {max(ek.values()):.3g}, "
+          f"plain fp32 {max(ep.values()):.3g}; failing: {bad[:5]})")
+    return {"loss_rel": max(rel.values()), "grad_rel": ekp[worst], "k4": k4,
+            "kernels_vs_fp64": max(ek.values()), "plain_fp32_vs_fp64": max(ep.values()),
+            "lossy_leaves": {k: {"kernels": ek[k], "plain_fp32": ep[k],
+                                 "kernels_vs_plain": ekp[k]} for k in lossy}}
+
+
 def _finetune_batch(lens, seed, moving_speaker=False):
     """FT_B synthetic clips of L frames, as one batch on the card, with the
     key mask of ``lens``: ViCo-shaped (whose speaker motion is constant, as
@@ -1198,6 +1343,136 @@ def finetune_fp64_reference():
             "past_1e-3": rows, "largest_ratio": ratio, "kernels_vs_fp64_other_leaves": ek[rest]}
 
 
+def _reference_checkpoint(path, out):
+    """The twin's state_dict at ``path`` re-saved as a reference file may
+    hold it: ``{'state_dict': ...}``, nn.DataParallel's ``module.`` prefix,
+    the VQ-VAEs' LayerNorms spelled gamma/beta and the x-transformers norms
+    weight/bias (the spellings ``utils.checkpoint.model_state_dict`` maps)."""
+    sd = {}
+    for k, v in torch.load(path, map_location="cpu", weights_only=True).items():
+        if ".fn.norm." in k:
+            k = k.replace(".fn.norm.weight", ".fn.norm.gamma").replace(".fn.norm.bias",
+                                                                       ".fn.norm.beta")
+        else:
+            k = k.replace(".gamma", ".weight").replace(".beta", ".bias")
+        sd["module." + k] = v
+    torch.save({"state_dict": sd, "epoch": 1}, out)
+    return out
+
+
+RF_TRAIN, RF_TEST, RF_CONVERSATIONS = 16, 25, 20
+
+
+@phase
+def real_files_path():
+    """The four CLI twins' ``main()`` at full width on the card, on files in
+    the reference's layout (``data.reference_files``) under ``../data`` of
+    their working directory: ViCo, RF_TEST test clips of L = 256 (the
+    generate headline's shape) and RF_TRAIN train clips of 300-511 frames
+    (bucket 512, so the listener VQ's attention takes K2/K3), with integer
+    ids in ``RLD_data.csv``; CANDOR, RF_CONVERSATIONS conversations x 2
+    utterances of 120-250 frames. In order: ``train_vq`` (the listener VQ,
+    1 epoch, prefetch 2); ``train_s2s_pretrain`` (bf16 autocast, both VQs
+    from the first run's checkpoint in the reference layout, token cache,
+    prefetch 2, 2 epochs: K4 in epoch 1's steps and never in epoch 2's);
+    ``finetune_s2s_pretrain`` (bf16 autocast, ``--pretrained`` from the
+    second's, 1 epoch); ``test_s2s_pretrain`` (``--state-dict`` from the
+    third's, best-of-10 in fp32). Every launch count is set to 0 just before
+    each twin and read just after."""
+    import pickle
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import (
+        finetune_s2s_pretrain, test_s2s_pretrain, train_s2s_pretrain, train_vq)
+    from dyadic_interaction_modeling_tpu_torch.data.reference_files import (
+        write_candor, write_vico)
+
+    root, cwd = tempfile.mkdtemp(prefix="real_files_"), os.getcwd()
+    data, work = os.path.join(root, "data"), os.path.join(root, "work")
+    runs = {}
+
+    def drive(name, main, argv):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        runs[name] = {"launches": dict(kernels.LAUNCHES), "s": time.perf_counter() - t0}
+        say(f"{name} on the reference files: exit {rc}, {runs[name]['s']:.1f} s, launches "
+            f"{runs[name]['launches']}")
+        check(rc == 0, f"{name} ran to its end on the reference files")
+
+    try:
+        train_len = [300 + (37 * i) % 212 for i in range(RF_TRAIN)]
+        write_vico(data, [L] * RF_TEST + train_len, ["test"] * RF_TEST + ["train"] * RF_TRAIN,
+                   seed=31)
+        write_candor(data, RF_CONVERSATIONS, 2, 120, 250, seed=32)
+        os.makedirs(work)
+        os.chdir(work)
+        drive("train_vq", train_vq.main, ["--save-path", os.path.join(root, "vq"),
+                                          "--prefetch", "2", "epochs", "1"])
+        got = runs["train_vq"]["launches"]
+        want = {"decode_attention": 0, "flash_attention_fwd": 12 * RF_TRAIN,
+                "flash_attention_bwd": 12 * RF_TRAIN, "nearest_code": RF_TRAIN + RF_TEST}
+        check(got == want, f"train_vq launches == {want}: 12 K2, 12 K3 and 1 K4 a training "
+              "step at L = 512, 1 K4 a validation clip at L = 256")
+        vq = _reference_checkpoint(os.path.join(root, "vq", "best_model.pt"),
+                                   os.path.join(root, "vq.pth.tar"))
+        per_epoch, real_epoch = [], train_s2s_pretrain.train_epoch
+
+        def counted_epoch(*args, **kwargs):
+            before = dict(kernels.LAUNCHES)
+            out = real_epoch(*args, **kwargs)
+            per_epoch.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+            return out
+
+        with mock.patch.object(train_s2s_pretrain, "train_epoch", counted_epoch):
+            drive("train_s2s_pretrain", train_s2s_pretrain.main, [
+                "--dtype", "bfloat16", "--vq-token-cache", "--prefetch", "2",
+                "--speaker-vq", vq, "--listener-vq", vq,
+                "--save-path", os.path.join(root, "pretrain"), "epochs", "2"])
+        steps = -(-(2 * RF_CONVERSATIONS - 2) // 32)  # 19 conversations train
+        say(f"train_s2s_pretrain launches in each epoch's training steps: {per_epoch}")
+        want = [{"decode_attention": 0, "flash_attention_fwd": 20 * steps,
+                 "flash_attention_bwd": 20 * steps, "nearest_code": k4}
+                for k4 in (2 * steps, 0)]
+        check(per_epoch == want, f"train_s2s_pretrain with the token cache: {steps} steps an "
+              "epoch, 20 K2 and 20 K3 a step, K4 twice a batch in epoch 1 and 0 times in "
+              f"epoch 2: {want}")
+        pre = _reference_checkpoint(os.path.join(root, "pretrain", "best_model.pt"),
+                                    os.path.join(root, "pretrain.pth.tar"))
+        drive("finetune_s2s_pretrain", finetune_s2s_pretrain.main, [
+            "--dtype", "bfloat16", "--pretrained", pre, "--prefetch", "2",
+            "--save-path", os.path.join(root, "finetune"), "epochs", "1"])
+        got = runs["finetune_s2s_pretrain"]["launches"]
+        check(got["decode_attention"] == 0 and min(
+            got[k] for k in ("flash_attention_fwd", "flash_attention_bwd", "nearest_code")) > 0,
+              f"finetune_s2s_pretrain launched K2, K3 and K4 and no K1: {got}")
+        ft = _reference_checkpoint(os.path.join(root, "finetune", "best_model.pt"),
+                                   os.path.join(root, "finetune.pth.tar"))
+        pred = os.path.join(root, "pred.pkl")
+        drive("test_s2s_pretrain", test_s2s_pretrain.main, ["--state-dict", ft, "--out", pred])
+        batches = -(-RF_TEST // 4)
+        got = runs["test_s2s_pretrain"]["launches"]
+        want = {"decode_attention": batches * 2 * 4 * (L - 1), "flash_attention_fwd": 0,
+                "flash_attention_bwd": 0, "nearest_code": 2 * batches}
+        check(got == want, f"test_s2s_pretrain launches == {want}: per batch of 4 clips, K1 "
+              "for 255 tokens x 4 layers x (self, cross) and K4 for the two VQ encodes")
+        with open(pred, "rb") as f:
+            out = pickle.load(f)
+        ok = (len(out["y_pred"]) == RF_TEST
+              and all(p.shape == (L - 1, 56) and bool(torch.isfinite(torch.as_tensor(p)).all())
+                      for p in out["y_pred"]))
+        check(ok, f"test_s2s_pretrain: {len(out['y_pred'])} best-of-10 predictions of "
+              f"({L - 1}, 56), all finite")
+        return {"runs": runs, "pretrain_epochs": per_epoch}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 @phase
 def vq_attention_routes():
     """The VQ attention at D = 48 by both routes, forward and forward +
@@ -1305,8 +1580,9 @@ def timings(main):
         out[name] = r
         del sets, masks4
     # K4: (n, 128) latents x (512, 128) codebook, fp32: n = 6400 in a
-    # generate, 1024 in a VQ training step and twice in a finetune step
-    for name, n in (("vq", 6400), ("vq_1024", 1024)):
+    # generate, 1024 in a VQ training step and twice in a finetune step, 8192
+    # in a speaker VQ training step
+    for name, n in (("vq", 6400), ("vq_1024", 1024), ("vq_8192", 8192)):
         z = torch.randn(n, 128, device="cuda", generator=g)
         e = torch.randn(512, 128, device="cuda", generator=g)
         r = dict(ms=cuda_ms(lambda i: nearest_code(z, e), 200),
@@ -1339,15 +1615,17 @@ def _flash_entry(name, line, which, tt, k23, by_path):
             "cases": {k: c[which] for k, c in cases.items()}, "max_err": k23}
 
 
-def kernels_line(gen_launches, mqa_launches, train, vq, ft, k4, k1, k23, t, tt, routes,
-                 refs, ft64, build_s):
+def kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1, k23, t, tt,
+                 routes, refs, ft64, build_s):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
                         "library_graph_ms")}
     paths = {f"train_{TRAIN_STEPS}_steps": train["launches"],
              f"vq_train_{TRAIN_STEPS}_steps": vq["launches"],
-             f"finetune_{TRAIN_STEPS}_steps": ft["launches"]}
+             f"finetune_{TRAIN_STEPS}_steps": ft["launches"],
+             f"speaker_vq_train_{TRAIN_STEPS}_steps": spk["launches"],
+             **{f"real_files_{name}": r["launches"] for name, r in rf["runs"].items()}}
 
     def by_path(name, generate=None):
         out = {} if generate is None else generate
@@ -1379,7 +1657,8 @@ def kernels_line(gen_launches, mqa_launches, train, vq, ft, k4, k1, k23, t, tt, 
          "launches_by_path": k4_paths,
          "max_abs_err": k4["max_abs_err"], **t["vq"], "agree": k4["agree"],
          "cases": {"(6400,128) x (512,128) fp32 (generate)": t["vq"],
-                   "(1024,128) x (512,128) fp32 (VQ training, finetune)": t["vq_1024"]},
+                   "(1024,128) x (512,128) fp32 (VQ training, finetune)": t["vq_1024"],
+                   "(8192,128) x (512,128) fp32 (speaker VQ training)": t["vq_8192"]},
          "on_path_latents": {path: r["k4"] for path, r in refs.items()}},
     ], "generate_ms": t["generate_ms"], "generate_runs_ms": t["generate_runs_ms"],
         "train_step_ms": train["step_ms"], "train_step_runs_ms": train["step_runs_ms"],
@@ -1393,6 +1672,12 @@ def kernels_line(gen_launches, mqa_launches, train, vq, ft, k4, k1, k23, t, tt, 
         "finetune_frames_per_s": FT_B * L / ft["step_ms"] * 1e3,
         "finetune_busy_share": ft["windows"]["card"]["busy_share"],
         "finetune_traced_windows": ft["windows"],
+        "speaker_vq_train_step_ms": spk["step_ms"],
+        "speaker_vq_train_step_runs_ms": spk["step_runs_ms"],
+        "speaker_vq_train_frames_per_s": VQ_L / spk["step_ms"] * 1e3,
+        "speaker_vq_train_busy_share": spk["windows"]["card"]["busy_share"],
+        "speaker_vq_train_traced_windows": spk["windows"],
+        "speaker_vq_reference": refs["speaker_vq_train"], "real_files": rf,
         "finetune_fp64_reference": ft64, "vq_attention_routes": routes, "build_s": build_s}
 
 
@@ -1429,14 +1714,21 @@ def main() -> int:
     ft_ref = finetune_reference()
     ft64 = finetune_fp64_reference()
     torch.cuda.empty_cache()
+    spk = speaker_vq_train_main_path()
+    spk_ref = speaker_vq_train_reference()
+    torch.cuda.empty_cache()
+    rf = real_files_path()
+    torch.cuda.empty_cache()
     routes = vq_attention_routes()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_ref, train,
-                            train_ref, tt, vq, vq_ref, ft, ft_ref, ft64, routes):
+                            train_ref, tt, vq, vq_ref, ft, ft_ref, ft64, spk, spk_ref, rf,
+                            routes):
         say(f"FAILED: {FAILURES}")
         return 1
-    refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref}
-    say(json.dumps(kernels_line(gen_launches, mqa_launches, train, vq, ft, k4, k1, k23, t,
-                                tt, routes, refs, ft64, build_s)))
+    refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
+            "speaker_vq_train": spk_ref}
+    say(json.dumps(kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1,
+                                k23, t, tt, routes, refs, ft64, build_s)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,69 +2,65 @@
 ``code/test_s2s_pretrain.py``), on the GPU by default.
 
     python -m dyadic_interaction_modeling_tpu_torch.cli.test_s2s_pretrain \
-        --synthetic [--device cpu] [--state-dict PATH] [KEY VALUE ...]
+        [--synthetic] [--config FILE.yaml] [--device cpu] [--state-dict PATH] \
+        [KEY VALUE ...]
 
-Builds SLMFT, loads a state_dict in the port's (reference) key layout when
-given (else a random init from ``--seed``), generates best-of-N by per-clip
-FD, prints the metric battery and pickles the predictions
-(``l2l_listener_predictions.pkl`` layout). Trailing ``KEY VALUE`` pairs
-override ``slm_defaults()``.
+Builds SLMFT, loads a checkpoint in the reference's layout when given (the
+finetune twin's ``best_model.pt`` or a reference ``.pt`` such as
+``best_vico_causal.pt``: ``{'state_dict': ...}``, ``module.`` and
+``gamma``/``beta`` keys accepted, loaded with ``strict=True``; else a
+random init from ``--seed``), generates best-of-N by per-clip FD, prints the
+metric battery and pickles the predictions (``l2l_listener_predictions.pkl``
+layout). The clips are the finetune twin's validation set: synthetic with
+``--synthetic``, else the test split of the ViCo files under ``../data``.
+Trailing ``KEY VALUE`` pairs override ``slm_defaults()``.
 """
 
 from __future__ import annotations
 
-import argparse
 import logging
 import pickle
 
 import torch
 
-from ..config import merge_cfg_from_list, slm_defaults, vq_cfg_for
-from ..data.loader import PaddedBatchLoader, slm_batch_from_collated
-from ..data.synthetic import synthetic_vico_dataset
+from ..config import slm_defaults, vq_cfg_for
+from ..data.loader import slm_batch_from_collated
 from ..engine.pt_engine import evaluate_test_epoch, make_slmft_generator
 from ..metrics.reporting import print_metrics, print_metrics_full
 from ..models.slm import SLMFT
+from ..utils.checkpoint import load_reference
+from .common import get_parser as common_parser
+from .common import load_config
+from .finetune_s2s_pretrain import make_loaders
 
 log = logging.getLogger(__name__)
 
 
-def get_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="SLMFT best-of-N evaluation")
-    parser.add_argument("--synthetic", action="store_true",
-                        help="evaluate on synthetic ViCo-shaped clips")
-    parser.add_argument("--device", default="cuda")
+def get_parser():
+    parser = common_parser("SLMFT best-of-N evaluation")
     parser.add_argument("--state-dict", type=str, default=None,
-                        help="SLMFT state_dict (.pt) in the port's key layout")
+                        help="SLMFT checkpoint in the reference's layout")
     parser.add_argument("--beam-size", type=int, default=10)
     parser.add_argument("--batch-size", type=int, default=4)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, default="l2l_listener_predictions.pkl")
-    parser.add_argument("opts", nargs=argparse.REMAINDER,
-                        help="KEY VALUE overrides of slm_defaults()")
     return parser
 
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic data is wired into the torch port yet")
-    slm_cfg = slm_defaults()
-    if args.opts:
-        slm_cfg = merge_cfg_from_list(slm_cfg, args.opts)
+    slm_cfg = load_config(args, slm_defaults)
     vq_cfg = vq_cfg_for(slm_cfg, args.synthetic)
 
     torch.manual_seed(args.seed)
     model = SLMFT(slm_cfg, vq_cfg)
     if args.state_dict:
-        model.load_state_dict(torch.load(args.state_dict, map_location="cpu",
-                                         weights_only=True))
+        load_reference(model, args.state_dict)
     else:
         log.warning("no --state-dict given: evaluating random init")
     model = model.to(args.device).eval()
 
-    loader = PaddedBatchLoader(synthetic_vico_dataset(n_clips=8, seed=3),
-                               args.batch_size, shuffle=False)
+    _, loader = make_loaders(args, args.batch_size)
     batches = (slm_batch_from_collated(c) + (c[5],) for c in loader)
     gen = make_slmft_generator(model)
     rng = torch.Generator(device=args.device).manual_seed(args.seed)

@@ -1,15 +1,16 @@
 """Configuration: attribute-access config dicts and the SLMFT default bundles.
 
 A copy of the parts of ``dyadic_interaction_modeling_tpu/config.py`` that the
-listener-generation slice needs (``CfgNode``, ``slm_defaults``,
-``vq_listener_defaults``, the ``KEY VALUE`` override merge) plus the
-``vq_cfg_for`` rule of ``cli/common.py``. The port keeps its own copy so it
-never imports the JAX package.
+port's CLIs need (``CfgNode``, ``load_cfg_from_cfg_file``, ``slm_defaults``,
+``vq_listener_defaults``, ``vq_speaker_defaults``, the ``KEY VALUE`` override
+merge) plus the ``vq_cfg_for`` rule of ``cli/common.py``. The port keeps its
+own copy so it never imports the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from ast import literal_eval
 from typing import Any, Dict, List, Optional
 
@@ -35,6 +36,28 @@ class CfgNode(dict):
 
     def clone(self) -> "CfgNode":
         return copy.deepcopy(self)
+
+
+def load_cfg_from_cfg_file(file: str) -> CfgNode:
+    """A sectioned YAML config (the reference's DATA / NETWORK / TRAIN / ...
+    sections), flattened one level: every leaf key becomes a top-level key.
+    Needs PyYAML, which only this function imports."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("--config needs PyYAML (the 'yaml' module), which is not "
+                          "installed") from e
+    if not (os.path.isfile(file) and file.endswith((".yaml", ".yml"))):
+        raise ValueError(f"{file} is not a yaml file")
+    with open(file) as f:
+        cfg_from_file = yaml.safe_load(f) or {}
+    cfg: Dict[str, Any] = {}
+    for key, section in cfg_from_file.items():
+        if isinstance(section, dict):
+            cfg.update(section)
+        else:
+            cfg[key] = section
+    return CfgNode(cfg)
 
 
 def _decode_cfg_value(v: Any) -> Any:
@@ -94,6 +117,16 @@ def vq_listener_defaults() -> CfgNode:
         manual_seed=131,
         dtype="float32",
     ))
+
+
+def vq_speaker_defaults() -> CfgNode:
+    """Audio-visual speaker VQ-VAE (reference code/config_speaker.yaml): one
+    encoder over 56 motion + 768 audio = 824 features, hidden 768 (8 heads of
+    96), 8 codes a frame."""
+    cfg = vq_listener_defaults()
+    cfg.update(arch="stage1_speaker_BIWI", in_dim=824, hidden_size=768,
+               face_quan_num=8, epochs=100)
+    return cfg
 
 
 def slm_defaults() -> CfgNode:

@@ -7,7 +7,7 @@
 // `_bwd_kernel` :70), the custom VJP of `flash_attention` (:194-210).
 //
 // What it computes is flash_attention.cu's: rows r = batch x head of
-// (R, L, D) q, k, v, D in {48, 64, 128}; o = softmax(q k^T * scale) v under an
+// (R, L, D) q, k, v, D in {48, 64, 96, 128}; o = softmax(q k^T * scale) v under an
 // optional causal mask and a key mask (uint8, row r reads mask row
 // r / mask_div); the row log-sum-exp in fp32, natural log, +inf for a query
 // row whose keys are all masked, which gets o = 0 and exactly 0 gradients.
@@ -36,7 +36,8 @@
 //   16 rows of its block's tile (the forward at D <= 64 without a causal mask
 //   takes eight warps, 128 query rows, on one stream of key tiles). Tiles sit
 //   in shared memory as bf16 with the 16-byte chunks of a row swizzled
-//   (mma_tile.cuh; at D = 48 in rows 64 wide, two chunks a row unused), so
+//   (mma_tile.cuh; at D = 48 in rows 64 wide, two chunks a row unused, and at
+//   D = 96 in rows 128 wide, four unused), so
 //   no ldmatrix has a bank conflict, and the tiles a loop walks over are
 //   double-buffered with cp.async: tile j + 1 is in flight while tile j is
 //   multiplied, one __syncthreads a tile. Rows past L are zero-filled by the
@@ -113,7 +114,8 @@ __device__ __forceinline__ void scale_and_mask(float (&s)[2 * N16][4], float sca
 
 // K2. Grid (query tiles, rows). A block is NW warps and takes 16 NW query
 // rows, which share the K and V tiles the block streams through. At D = 48
-// and 64 an SM holds 16 warps of it, at 128 registers a thread.
+// and 64 an SM holds 16 warps of it, at 128 registers a thread; at D = 96 and
+// 128 a block is four warps whose registers are not capped.
 template <int D, bool CAUSAL, int NW>
 __global__ void __launch_bounds__(32 * NW, D <= 64 ? 16 / NW : 1)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -517,6 +519,10 @@ cudaError_t flash_attention_mma_fwd_launch(const void* q, const void* k, const v
     if (causal) FLASH_FWD(64, true);
     FLASH_FWD(64, false);
   }
+  if (D == 96) {
+    if (causal) FLASH_FWD(96, true);
+    FLASH_FWD(96, false);
+  }
   if (D == 128) {
     if (causal) FLASH_FWD(128, true);
     FLASH_FWD(128, false);
@@ -546,6 +552,10 @@ cudaError_t flash_attention_mma_bwd_launch(const void* q, const void* k, const v
   if (D == 64) {
     if (causal) FLASH_BWD(64, true);
     FLASH_BWD(64, false);
+  }
+  if (D == 96) {
+    if (causal) FLASH_BWD(96, true);
+    FLASH_BWD(96, false);
   }
   if (D == 128) {
     if (causal) FLASH_BWD(128, true);

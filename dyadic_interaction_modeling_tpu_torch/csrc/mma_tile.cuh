@@ -48,7 +48,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // row, so the eight rows that one ldmatrix phase reads at a fixed c fall into
 // eight different bank groups. The swizzle needs rows of a multiple of eight
 // chunks: at D = 48 a row is 64 wide, its six chunks take six of the eight
-// swizzled places and the other two are never written or read (products run
+// swizzled places and the other two are never written or read (at D = 96 a
+// row is 128 wide and twelve of its sixteen places are used; products run
 // over D / 16 k slices and D / 8 n tiles, stores over D / 8 chunks), so HBM
 // is neither padded nor read beyond D.
 __host__ __device__ constexpr int tile_width(int D) { return (D + 63) / 64 * 64; }

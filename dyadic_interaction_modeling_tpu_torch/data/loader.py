@@ -1,20 +1,24 @@
-"""Batching and padding of ragged clips (reference ``pad_collate``).
+"""Batching, padding and prefetching of ragged clips (reference
+``pad_collate``).
 
-A copy of ``bucket_length``, ``pad_collate``, ``PaddedBatchLoader`` and
-``slm_batch_from_collated`` from ``dyadic_interaction_modeling_tpu/
-data/loader.py``, and of the VQ training collate of
-``dyadic_interaction_modeling_tpu/cli/train_vq.py:25-37`` (``vq_collate``).
-Lengths are padded up to a power-of-two bucket, as there, so both packages
-see the same padded batches.
+A copy of ``bucket_length``, ``pad_collate``, ``PaddedBatchLoader``,
+``slm_batch_from_collated`` and ``PrefetchLoader`` from
+``dyadic_interaction_modeling_tpu/data/loader.py``, and of the VQ training
+collate of ``dyadic_interaction_modeling_tpu/cli/train_vq.py:25-37``
+(``vq_collate``). Lengths are padded up to a power-of-two bucket, as there,
+so both packages see the same padded batches.
 """
 
 from __future__ import annotations
 
 import math
+import queue
 import random
-from typing import Callable, Iterator, Sequence, Tuple
+import threading
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def bucket_length(n: int, min_bucket: int = 32, max_len: int = 1024) -> int:
@@ -91,3 +95,83 @@ def slm_batch_from_collated(collated) -> Tuple:
     splitting the 824 speaker features into 56 motion + 768 audio."""
     src, tgt, _lens, mask, _ids, _names = collated
     return (src[..., :56], tgt, src[..., 56:], mask)
+
+
+class PrefetchLoader:
+    """A background thread keeps up to ``depth`` batches of ``loader`` ready
+    in a bounded queue, so that reading and collating clips (and, with
+    ``device``, the copy to the card) overlap the step
+    (``data/loader.py:109-195`` of the JAX package; the reference's
+    DataLoader workers).
+
+    ``transform`` maps each batch before it is queued. With ``device``, every
+    numpy array of a batch (a tuple, list or the array itself) becomes a
+    tensor on that ``torch.device``, the JAX package's ``device_put``. An
+    exception of the dataset or the transform is raised in the consumer, at
+    the ``next()`` that would have returned the failing batch; abandoning
+    the iterator stops the thread promptly.
+    """
+
+    _SENTINEL = object()
+
+    def __init__(self, loader, depth: int = 2, transform: Optional[Callable] = None,
+                 device: Optional[torch.device] = None):
+        self.loader = loader
+        self.depth = max(1, int(depth))
+        self.transform = transform
+        self.device = device
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.loader, "set_epoch"):
+            self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def _to_device(self, x):
+        if isinstance(x, np.ndarray):
+            return torch.as_tensor(x, device=self.device)
+        if isinstance(x, (tuple, list)):
+            return type(x)(self._to_device(y) for y in x)
+        return x
+
+    def _prepare(self, batch):
+        if self.transform is not None:
+            batch = self.transform(batch)
+        return batch if self.device is None else self._to_device(batch)
+
+    def __iter__(self) -> Iterator:
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        err: List[BaseException] = []
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not put(self._prepare(batch)):
+                        return
+            except BaseException as e:  # noqa: BLE001 - raised in the consumer
+                err.append(e)
+            finally:
+                put(self._SENTINEL)
+
+        threading.Thread(target=worker, daemon=True).start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is self._SENTINEL:
+                    if err:
+                        raise err[0]
+                    return
+                yield batch
+        finally:
+            stop.set()

@@ -7,6 +7,8 @@ Counterpart of ``dyadic_interaction_modeling_tpu/engine/pt_engine.py``:
   with global-norm clipping over the trainable parameters and, on the card,
   bf16 autocast over fp32 parameters (the counterpart of flax
   ``dtype=bfloat16`` with fp32 ``param_dtype``);
+* ``VQTokenCache`` (:86-133): the frozen VQs' codes of each clip, computed
+  the first time the clip comes and reassembled for any later batch;
 * ``evaluate_finetune_epoch`` (:165-187): SLMFT's teacher-forced
   predictions for the metric battery;
 * ``make_slmft_generator`` (:195-318) runs the N resamples of every clip as
@@ -28,7 +30,7 @@ from ..metrics.eval_utils import (
     calculate_frechet_distance,
 )
 from ..models.slm import SLMFT
-from ..models.xtrans import generate_tokens
+from ..models.xtrans import IGNORE, generate_tokens
 from .train_state import clip_by_global_norm
 
 log = logging.getLogger(__name__)
@@ -40,24 +42,29 @@ def _autocast(device: torch.device, amp_dtype: Optional[torch.dtype]):
 
 
 def make_slm_train_step(model, optimizer: torch.optim.Optimizer, clip_norm: float,
-                        amp_dtype: Optional[torch.dtype] = None) -> Callable:
+                        amp_dtype: Optional[torch.dtype] = None,
+                        with_vq_tokens: bool = False) -> Callable:
     """(batch, generator=None, noise=None) -> logs: one optimizer step.
 
-    batch = (src_v, tgt, src_a, mask) tensors on the model's device;
-    ``model`` is SLM or SLMFT; ``generator`` draws the masking noise, or
-    ``noise`` injects it (see ``SLM.forward``, ``SLMFT.forward``). The forward runs under autocast to ``amp_dtype`` when
-    given; the cross-entropy's log-softmax stays fp32. The gradients of the
-    optimizer's parameters are clipped to a global norm of ``clip_norm``
-    (none when 0). Returns the six logs as detached device tensors, so a
-    step never waits for the card."""
+    batch = (src_v, tgt, src_a, mask) tensors on the model's device, and with
+    ``with_vq_tokens`` also the (z_s, z_l) codes of the frozen VQs
+    (``VQTokenCache``), so the step does not run their encoders; ``model`` is
+    SLM or SLMFT; ``generator`` draws the masking noise, or ``noise`` injects
+    it (see ``SLM.forward``, ``SLMFT.forward``). The forward runs under
+    autocast to ``amp_dtype`` when given; the cross-entropy's log-softmax
+    stays fp32. The gradients of the optimizer's parameters are clipped to a
+    global norm of ``clip_norm`` (none when 0). Returns the six logs as
+    detached device tensors, so a step never waits for the card."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def step(batch, generator: Optional[torch.Generator] = None, noise=None
              ) -> Dict[str, torch.Tensor]:
-        src_v, tgt, src_a, mask = batch
+        src_v, tgt, src_a, mask = batch[:4]
+        tokens = tuple(batch[4:6]) if with_vq_tokens else None
         optimizer.zero_grad(set_to_none=True)
         with _autocast(src_v.device, amp_dtype):
-            out = model(src_v, tgt, src_a, mask, generator=generator, noise=noise)
+            out = model(src_v, tgt, src_a, mask, generator=generator, noise=noise,
+                        vq_tokens=tokens)
         out.total_loss.backward()
         if clip_norm > 0:
             clip_by_global_norm(params, clip_norm)
@@ -65,6 +72,52 @@ def make_slm_train_step(model, optimizer: torch.optim.Optimizer, clip_norm: floa
         return {k: v.detach() for k, v in out.logs.items()}
 
     return step
+
+
+class VQTokenCache:
+    """The frozen VQ tokenizers' codes of each clip, by clip name.
+
+    The SLM and SLMFT steps tokenize every batch with the two frozen VQ
+    encoders, though a clip's codes never change: the masked batched encode
+    equals encoding each clip alone within its length, so they depend
+    neither on the batch nor on its padding. The first time a clip comes
+    this runs ``forward_vq`` (under ``amp_dtype`` autocast, as the step
+    would) and keeps the clip's codes on the host; a batch whose clips are
+    all known is then assembled there, padded as ``forward_vq`` pads (0 for
+    speaker codes, ``IGNORE`` for listener codes), and copied to the card.
+    Clips are cached only under unique truthy names (the dataset's clip
+    path); a batch without them is computed every time.
+    """
+
+    def __init__(self, model, amp_dtype: Optional[torch.dtype] = None):
+        self._model = model
+        self._fq = int(model.vq_cfg.face_quan_num)
+        self._amp = amp_dtype
+        self._store: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+
+    def __call__(self, batch, names) -> Tuple[torch.Tensor, torch.Tensor]:
+        src_v, tgt, _src_a, mask = batch[:4]
+        usable = (names is not None and all(names)
+                  and len(set(names)) == len(names))
+        if not usable or any(n not in self._store for n in names):
+            with torch.no_grad(), _autocast(src_v.device, self._amp):
+                z_s, z_l = self._model.forward_vq(src_v, tgt, mask)
+            if usable:
+                lens = mask.sum(dim=1).cpu().numpy()
+                zs_np, zl_np = z_s.cpu().numpy(), z_l.cpu().numpy()
+                for i, n in enumerate(names):
+                    self._store[n] = (zs_np[i, : lens[i] * self._fq].copy(),
+                                      zl_np[i, : lens[i]].copy())
+            return z_s, z_l
+        b, l = src_v.shape[0], src_v.shape[1]
+        z_s = np.zeros((b, l * self._fq), np.int32)
+        z_l = np.full((b, l), IGNORE, np.int32)
+        for i, n in enumerate(names):
+            zs, zl = self._store[n]
+            z_s[i, : zs.shape[0]] = zs
+            z_l[i, : zl.shape[0]] = zl
+        return (torch.as_tensor(z_s, device=src_v.device),
+                torch.as_tensor(z_l, device=src_v.device))
 
 
 def train_epoch(loader: Iterable, train_step: Callable,

@@ -2,9 +2,11 @@
 
 Counterpart of ``dyadic_interaction_modeling_tpu/engine/vq_engine.py:27-115``:
 one step is the VQ-VAE's forward, the L1 reconstruction plus the weighted
-quantization loss (``metrics.loss.calc_vq_loss``), backward and an
-optimizer step (AdamW from ``engine.train_state.make_optimizer``). The
-loop reads the card's metrics back once per print window, not every step.
+quantization loss (``metrics.loss.calc_vq_loss``, or with ``audio_visual``
+the speaker VQ's split motion + audio loss ``calc_vq_loss_AV``), backward
+and an optimizer step (AdamW from ``engine.train_state.make_optimizer``).
+The loop reads the card's metrics back once per print window, not every
+step.
 """
 
 from __future__ import annotations
@@ -14,27 +16,30 @@ from typing import Callable, Dict, Iterable
 
 import torch
 
-from ..metrics.loss import calc_vq_loss
+from ..metrics.loss import calc_vq_loss, calc_vq_loss_AV
 
 log = logging.getLogger(__name__)
 METRICS = ("loss", "rec_loss", "quant_loss", "perplexity")
 
 
-def _metrics(model, batch, quant_loss_weight):
+def _metrics(model, batch, quant_loss_weight, audio_visual):
     dec, emb_loss, enc = model(batch)
-    total, (rec, quant) = calc_vq_loss(dec, batch, emb_loss, quant_loss_weight)
+    loss = calc_vq_loss_AV if audio_visual else calc_vq_loss
+    total, (rec, quant) = loss(dec, batch, emb_loss, quant_loss_weight)
     return total, {"loss": total, "rec_loss": rec, "quant_loss": quant,
                    "perplexity": enc.perplexity}
 
 
 def make_vq_train_step(model, optimizer: torch.optim.Optimizer,
-                       quant_loss_weight: float = 1.0) -> Callable:
+                       quant_loss_weight: float = 1.0, audio_visual: bool = False
+                       ) -> Callable:
     """batch (B, L, C) -> metrics: one optimizer step. The metrics are
-    detached device tensors, so a step never waits for the card."""
+    detached device tensors, so a step never waits for the card.
+    ``audio_visual`` takes the speaker VQ's split loss."""
 
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
-        total, metrics = _metrics(model, batch, quant_loss_weight)
+        total, metrics = _metrics(model, batch, quant_loss_weight, audio_visual)
         total.backward()
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
@@ -42,12 +47,13 @@ def make_vq_train_step(model, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_vq_eval_step(model, quant_loss_weight: float = 1.0) -> Callable:
+def make_vq_eval_step(model, quant_loss_weight: float = 1.0,
+                      audio_visual: bool = False) -> Callable:
     """batch -> metrics, without gradients."""
 
     @torch.no_grad()
     def step(batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return _metrics(model, batch, quant_loss_weight)[1]
+        return _metrics(model, batch, quant_loss_weight, audio_visual)[1]
 
     return step
 

@@ -94,8 +94,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # the head widths the kernels are built for: 64 and 128 for the SLM stack, 48
-# for the VQ-VAEs' 384 / 8
-KERNEL_D = (48, 64, 128)
+# for the listener VQ-VAE's 384 / 8, 96 for the speaker VQ-VAE's 768 / 8. The
+# call sites route any other width to their dense path (``models/xtrans.py``,
+# ``ops/transformer.py``), and every wrapper refuses it on every device.
+KERNEL_D = (48, 64, 96, 128)
 
 
 def _check(name: str, q: torch.Tensor, tensors, key_mask) -> None:
@@ -138,10 +140,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_mask: Optional[torch.Tensor] = None, *, causal: bool,
                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: (o in q's dtype, lse (R, L) fp32). CUDA tensors run the kernel,
-    CPU tensors the plain version."""
-    if not _dispatch("flash_attention_fwd", q):
-        return flash_attention_fwd_plain(q, k, v, key_mask, causal=causal, scale=scale)
+    CPU tensors the plain version; both take only what the kernel takes."""
+    on_card = _dispatch("flash_attention_fwd", q)
     _check("flash_attention_fwd", q, (("k", k), ("v", v)), key_mask)
+    if not on_card:
+        return flash_attention_fwd_plain(q, k, v, key_mask, causal=causal, scale=scale)
     o, lse = extension().flash_attention_fwd(q, k, v, key_mask, causal, float(scale))
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
@@ -153,10 +156,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3: (dq, dk, dv) in the inputs' dtype, self-attention (Lq == Lk). CUDA
-    tensors run the kernel, CPU tensors the plain version."""
-    if not _dispatch("flash_attention_bwd", q):
-        return flash_attention_bwd_plain(q, k, v, o, do, lse, key_mask,
-                                         causal=causal, scale=scale)
+    tensors run the kernel, CPU tensors the plain version; both take only
+    what the kernel takes."""
+    on_card = _dispatch("flash_attention_bwd", q)
     _check("flash_attention_bwd", q, (("k", k), ("v", v), ("o", o), ("do", do)),
            key_mask)
     if (lse.dtype != torch.float32 or lse.shape != q.shape[:2]
@@ -164,6 +166,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd: lse must be a contiguous (R, L) "
                          f"float32 tensor on q's device, got {lse.dtype} "
                          f"{tuple(lse.shape)}")
+    if not on_card:
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, key_mask,
+                                         causal=causal, scale=scale)
     grads = extension().flash_attention_bwd(q, k, v, o, do, lse, key_mask, causal,
                                             float(scale))
     LAUNCHES["flash_attention_bwd"] += 1
@@ -204,7 +209,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable softmax(q kᵀ · scale) v over (R, L, D) rows, with an
     optional causal mask and a (R // m, L) key mask. CUDA tensors go through
     ``FlashAttention`` (K2 forward, K3 backward); CPU tensors through the
-    plain forward, which autograd differentiates."""
-    if _dispatch("flash_attention", q):
+    plain forward, which autograd differentiates. Both take only what the
+    kernels take (``_check``)."""
+    on_card = _dispatch("flash_attention", q)
+    _check("flash_attention", q, (("k", k), ("v", v)), key_mask)
+    if on_card:
         return FlashAttention.apply(q, k, v, key_mask, causal, scale)
     return flash_attention_plain(q, k, v, key_mask, causal=causal, scale=scale)

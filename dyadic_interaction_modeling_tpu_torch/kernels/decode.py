@@ -60,9 +60,6 @@ def _kernel(q, k, v, t: Step, key_mask, scale: float) -> torch.Tensor:
     if k.shape[0] != rows or k.shape[2] != d:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not match "
                          f"k/v {tuple(k.shape)}")
-    if d not in KERNEL_D:
-        raise ValueError(f"decode_attention: the kernel takes D in {KERNEL_D} "
-                         f"(so D % 8 == 0), got D={d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be a contiguous, "
@@ -97,13 +94,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``<= t`` (a Python int or a one-element int32 tensor on the device;
     ``None`` attends to all L); key_mask: (R, L), or (R // m, L) shared by m
     consecutive cache rows, True = attend. Returns (R, NQ, D) in q's dtype; a
-    fully masked row gives 0. NQ is at most ``MAX_NQ`` on every device; the
-    kernel takes D in ``KERNEL_D``. CUDA tensors run the kernel, CPU tensors
-    the plain version.
+    fully masked row gives 0. On every device NQ is at most ``MAX_NQ`` and D
+    one of ``KERNEL_D``, the kernel's limits. CUDA tensors run the kernel,
+    CPU tensors the plain version.
     """
     if q.dim() == 3 and q.shape[1] > MAX_NQ:
         raise ValueError(f"decode_attention: NQ={q.shape[1]} query rows a cache row, "
                          f"at most {MAX_NQ}")
+    if q.dim() == 3 and q.shape[2] not in KERNEL_D:
+        raise ValueError(f"decode_attention: the kernel takes D in {KERNEL_D} "
+                         f"(so D % 8 == 0), got D={q.shape[2]}")
     if q.device.type == "cuda":
         return _kernel(q, k, v, t, key_mask, scale)
     if q.device.type == "cpu":

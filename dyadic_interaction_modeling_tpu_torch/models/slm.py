@@ -151,6 +151,10 @@ class _SLMBase(nn.Module):
     def decoder(self) -> TokenDecoder:
         return self.decoder_joint.net
 
+    @torch.no_grad()  # stop_gradient (slm.py:261, :338)
+    def _tokens(self, v_speaker, v_listener, valid_mask):
+        return self.forward_vq(v_speaker, v_listener, valid_mask)
+
     def forward_vq(self, v_speaker: torch.Tensor, v_listener: torch.Tensor,
                    valid_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched masked tokenization: speaker codes padded with 0 and
@@ -216,14 +220,18 @@ class SLM(_SLMBase):
     def forward(self, v_speaker: torch.Tensor, v_listener: torch.Tensor,
                 v_audio: torch.Tensor, valid_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                vq_tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> SLMOutputs:
         """Total loss and the six logs of one batch.
 
         ``noise``: the (speaker, listener) pair of uniform (B, L) masking
-        noise; drawn from ``generator`` when absent."""
-        with torch.no_grad():  # stop_gradient (slm.py:261)
-            z_s, z_l = self.forward_vq(v_speaker, v_listener, valid_mask)
+        noise; drawn from ``generator`` when absent. ``vq_tokens``: the
+        (z_s, z_l) that ``forward_vq`` would give, precomputed (the frozen
+        tokenizers give the same codes every step; ``engine.pt_engine.
+        VQTokenCache``), so the two VQ encoders do not run."""
+        z_s, z_l = vq_tokens if vq_tokens is not None else self._tokens(
+            v_speaker, v_listener, valid_mask)
         if noise is None:
             shape, dev = valid_mask.shape, valid_mask.device
             noise = (torch.rand(shape, generator=generator, device=dev),
@@ -291,7 +299,9 @@ class SLMFT(_SLMBase):
     def forward(self, v_speaker: torch.Tensor, v_listener: torch.Tensor,
                 v_audio: torch.Tensor, valid_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[torch.Tensor] = None) -> SLMOutputs:
+                noise: Optional[torch.Tensor] = None,
+                vq_tokens: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> SLMOutputs:
         """The finetune loss (listener CE + continuous loss), SLM's six logs
         (the speaker and contrastive ones 0) and the teacher-forced motion.
 
@@ -299,9 +309,10 @@ class SLMFT(_SLMBase):
         corrupted inputs; drawn from ``generator`` when absent. The
         corruption applies in evaluation too, as the JAX package's
         ``evaluate_finetune_epoch`` passes an rng and x-transformers applies
-        ``mask_prob`` whatever the mode."""
-        with torch.no_grad():  # stop_gradient (slm.py:338)
-            _, z_l = self.forward_vq(v_speaker, v_listener, valid_mask)
+        ``mask_prob`` whatever the mode. ``vq_tokens``: precomputed codes, as
+        in ``SLM.forward``."""
+        _, z_l = vq_tokens if vq_tokens is not None else self._tokens(
+            v_speaker, v_listener, valid_mask)
         x_s = self.forward_encoder(v_speaker, valid_mask)
         l_ce_l, logits_l = self.decode_train(x_s, z_l, v_audio, valid_mask, noise, generator)
         pred_l = self.forward_vq_decoder_train(logits_l)

@@ -1,9 +1,11 @@
 """VQ-VAE facial-motion tokenizers, BIWI variant (stage1_BIWI.py:10-411).
 
-Counterpart of ``dyadic_interaction_modeling_tpu/models/vq_vae.py:58-262``:
-the tokenizer's encode and decode, the training forward (reconstruction,
-quantization loss and perplexity) and the code-space utilities. Module keys
-follow ``stage1_BIWI`` so a reference state_dict loads with ``strict=True``.
+Counterpart of ``dyadic_interaction_modeling_tpu/models/vq_vae.py:58-330``:
+the listener tokenizer's encode and decode, the training forward
+(reconstruction, quantization loss and perplexity) and the code-space
+utilities, and the audio-visual speaker tokenizer (``VQSpeakerAutoEncoder``).
+Module keys follow ``stage1_BIWI`` so a reference state_dict loads with
+``strict=True``.
 Motion is (B, L, C) at every public function, quantized latents (B, C, L)
 as the reference keeps them.
 """
@@ -168,3 +170,52 @@ class VQAutoEncoder(nn.Module):
     def entry_to_feature(self, indices: torch.Tensor, zshape: Tuple[int, ...]
                          ) -> torch.Tensor:
         return self.quantize.get_codebook_entry(indices.reshape(-1)).reshape(zshape)
+
+
+class VQSpeakerAutoEncoder(nn.Module):
+    """The audio-visual speaker VQ-VAE (stage1_BIWI.py:140-251): one encoder
+    over [motion (56) || audio (768)], ``face_quan_num`` codes a frame, and two
+    decoders, ``decoder_v`` (motion) and ``decoder_a`` (audio), whose outputs
+    are concatenated [v, a]. At ``vq_speaker_defaults()`` the attention has
+    8 heads of 768 / 8 = 96."""
+
+    def __init__(self, cfg, motion_dim: int = 56, audio_dim: int = 768):
+        super().__init__()
+        self.face_quan_num = cfg.face_quan_num
+        self.zquant_dim = cfg.zquant_dim
+        self.encoder = TransformerEncoder(cfg)
+        self.decoder_v = TransformerDecoder(cfg, motion_dim)
+        self.decoder_a = TransformerDecoder(cfg, audio_dim)
+        self.quantize = VectorQuantizer(cfg.n_embed, cfg.zquant_dim, beta=0.25)
+
+    def encode(self, x: torch.Tensor) -> VQEncodeResult:
+        """(B, L, 824) -> quantized latents (B, zquant_dim, L*fq), loss,
+        perplexity and (B, L*fq) codes."""
+        h = self.encoder(x)
+        b, l, _ = h.shape
+        q = self.quantize(h.reshape(b, l * self.face_quan_num, self.zquant_dim))
+        return VQEncodeResult(q.z_q, q.loss, q.perplexity, q.indices)
+
+    def decode(self, quant: torch.Tensor) -> torch.Tensor:
+        """(B, zquant_dim, L*fq) latents -> (B, L, 56 + 768) [motion, audio]."""
+        b = quant.shape[0]
+        h = quant.transpose(1, 2).reshape(b, -1, self.face_quan_num * self.zquant_dim)
+        return torch.cat([self.decoder_v(h), self.decoder_a(h)], dim=-1)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, VQEncodeResult]:
+        """The training pass: (reconstruction, quantization loss, encode
+        result)."""
+        enc = self.encode(x)
+        return self.decode(enc.quant), enc.emb_loss, enc
+
+    def get_quant(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        enc = self.encode(x)
+        return enc.quant, enc.indices
+
+    def decode_to_img(self, indices: torch.Tensor, zshape: Tuple[int, int, int]
+                      ) -> torch.Tensor:
+        """Codes of any shape, looked up as (B, L, C) ``zshape``, decoded."""
+        z_q = self.quantize.get_codebook_entry(indices.reshape(-1)).reshape(zshape)
+        return self.decode(z_q.transpose(1, 2))
+

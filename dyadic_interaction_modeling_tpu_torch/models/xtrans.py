@@ -17,9 +17,13 @@ goes through ``kernels.decode.decode_attention`` (K1), and a self-attention
 without an ``attn_mask`` through ``kernels.attention.flash_attention`` (K2
 forward, K3 backward), whatever its length: the JAX package's
 512 <= L <= 2048 window (``xtrans.py:54``) is a TPU timing gate. Both run
-their CUDA kernels on the card and their plain versions on the CPU. Every
-other attention (cross-attention, a self-attention with an ``attn_mask``)
-is a plain ``torch.matmul`` + softmax, as the JAX package's dense path.
+their CUDA kernels on the card and their plain versions on the CPU. Each
+takes only the head widths its kernels are built for (``KERNEL_D`` of
+``kernels/decode.py`` and ``kernels/attention.py``); any other ``dim_head``
+takes the dense path on every device, as the JAX package routes widths its
+kernels lack (``xtrans.py:54``, ``:101``). Every other attention
+(cross-attention, a self-attention with an ``attn_mask``) is a plain
+``torch.matmul`` + softmax, as the JAX package's dense path.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attention import KERNEL_D as FLASH_D
 from ..kernels.attention import flash_attention
-from ..kernels.decode import decode_attention
+from ..kernels.decode import KERNEL_D as DECODE_D
+from ..kernels.decode import decode_attention, decode_attention_plain
 
 NEG_INF = float("-inf")
 IGNORE = -100  # the ignore_index of token targets
@@ -115,7 +121,7 @@ class XAttention(nn.Module):
         q = self._split(self.to_q(x), self.heads)
         k = self._split(self.to_k(kv_src), self.kvh)
         v = self._split(self.to_v(kv_src), self.kvh)
-        if context is None and attn_mask is None:
+        if context is None and attn_mask is None and self.dim_head in FLASH_D:
             return self.to_out(self._flash_attend(q, k, v, key_mask))
         nq, g = q.shape[2], self.group
         dots = torch.matmul(self._fold_q(q), k.transpose(-1, -2)).float() * self.scale
@@ -142,6 +148,11 @@ class XAttention(nn.Module):
 
     # --- cached single-step path (generation) ---
 
+    @staticmethod
+    def _step_attention(dh: int):
+        """K1 at the head widths it is built for, else the dense step."""
+        return decode_attention if dh in DECODE_D else decode_attention_plain
+
     def cross_kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-attention K/V of a context, computed once per generation:
         (B, KVH, L, Dh) each."""
@@ -161,8 +172,8 @@ class XAttention(nn.Module):
         cache_v[:, :, t] = self.to_v(x_t).reshape(b, kvh, dh)
         # (B, 1, H*Dh) is (B, KVH, G, Dh) row-major: the folded query rows
         q = self.to_q(x_t).reshape(b * kvh, self.group, dh)
-        o = decode_attention(q, cache_k.view(b * kvh, lmax, dh),
-                             cache_v.view(b * kvh, lmax, dh), t, scale=self.scale)
+        o = self._step_attention(dh)(q, cache_k.view(b * kvh, lmax, dh),
+                                     cache_v.view(b * kvh, lmax, dh), t, scale=self.scale)
         return self.to_out(o.reshape(b, 1, self.heads * dh))
 
     def step_cross(self, x_t: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -181,8 +192,9 @@ class XAttention(nn.Module):
                              f"and groups={groups}")
         q = self.to_q(x_t).reshape(n, b0, self.heads, dh).permute(1, 2, 0, 3)
         q = q.reshape(b0 * kvh, self.group * n, dh).contiguous()
-        o = decode_attention(q, k.view(b0 * kvh, lk, dh), v.view(b0 * kvh, lk, dh),
-                             None, key_mask, scale=self.scale)
+        o = self._step_attention(dh)(q, k.view(b0 * kvh, lk, dh),
+                                     v.view(b0 * kvh, lk, dh), None, key_mask,
+                                     scale=self.scale)
         # (B0*KVH, G*N, Dh) -> (B0, H, N, Dh) -> (N*B0, 1, H*Dh)
         o = o.reshape(b0, self.heads, n, dh).permute(2, 0, 1, 3)
         return self.to_out(o.reshape(nb, 1, self.heads * dh))

@@ -14,10 +14,12 @@ Reproduced reference quirks:
 * LayerNorm eps is 1e-5.
 
 Attention over L >= ``FLASH_MIN_LEN`` keys without a mask, or with only a
-(B, 1, Lk) key mask, goes through ``kernels.attention.flash_attention`` (K2
-forward, K3 backward; D = 384 / 8 = 48 at full width), the counterpart of
-the JAX package's Pallas route (``ops/transformer.py:98-103``); every other
-attention is a plain ``torch.matmul`` + softmax (``attend``). The JAX
+(B, 1, Lk) key mask, at a head width K2/K3 are built for (``KERNEL_D``),
+goes through ``kernels.attention.flash_attention`` (K2 forward, K3
+backward; D = 384 / 8 = 48 in the listener VQ, 768 / 8 = 96 in the speaker
+VQ), the counterpart of the JAX package's Pallas route
+(``ops/transformer.py:98-103``); every other attention, any other head
+width included, is a plain ``torch.matmul`` + softmax (``attend``). The JAX
 package's window, 512 <= L <= 1024, was set by TPU timings: the port keeps
 its lower edge as a starting point and drops the upper one, since K2/K3 take
 any L.
@@ -31,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.attention import flash_attention
+from ..kernels.attention import KERNEL_D, flash_attention
 
 # shortest sequence that takes K2/K3 (the JAX package's lower edge; not yet
 # set from H100 timings)
@@ -75,7 +77,8 @@ class Attention(nn.Module):
                    for t in self.to_qkv(x).chunk(3, dim=-1))
         key_mask = mask[:, 0] if mask is not None and mask.dim() == 3 and mask.shape[1] == 1 \
             else None
-        if (mask is None or key_mask is not None) and k.shape[2] >= FLASH_MIN_LEN:
+        if ((mask is None or key_mask is not None) and k.shape[2] >= FLASH_MIN_LEN
+                and k.shape[3] in KERNEL_D):
             return self.to_out(self._flash(q, k, v, key_mask))
         if mask is not None:
             mask = mask[None, None] if mask.dim() == 2 else mask[:, None]

@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's flax param trees -> the port's state_dicts.
 
 Adapted from ``dyadic_interaction_modeling_tpu/utils/torch_export.py``
-(``flax_vq_to_torch`` :140, ``flax_slm_to_torch`` :260). The inputs are the
+(``flax_vq_to_torch`` :140, ``flax_vq_speaker_to_torch`` :163,
+``flax_slm_to_torch`` :260). The inputs are the
 flax trees as nested mappings of numpy arrays; no JAX is imported.
 
 Layout notes:
@@ -78,7 +79,7 @@ def _check_qf(cfg):
         raise NotImplementedError("the torch port implements quant_factor == 0 only")
 
 
-def _vq(sd, p, cfg, prefix=""):
+def _vq(sd, p, cfg, prefix="", decoders=("decoder",)):
     _check_qf(cfg)
     if "encoder" in p:
         e, pre = p["encoder"], f"{prefix}encoder"
@@ -91,8 +92,8 @@ def _vq(sd, p, cfg, prefix=""):
                          cfg.num_hidden_layers)
         _dense(sd, f"{pre}.encoder_linear_embedding_post.net",
                e["encoder_linear_embedding_post"]["net"])
-    if "decoder" in p:
-        d, pre = p["decoder"], f"{prefix}decoder"
+    for name in (n for n in decoders if n in p):
+        d, pre = p[name], f"{prefix}{name}"
         _dense(sd, f"{pre}.decoder_linear_embedding_pre.net",
                d["decoder_linear_embedding_pre"]["net"])
         _conv_block(sd, f"{pre}.expander", d["expander"], cfg.INaffine)
@@ -169,6 +170,14 @@ def jax_vq_to_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
     ``VQAutoEncoder`` state_dict (fp32 tensors)."""
     sd: Dict[str, np.ndarray] = {}
     _vq(sd, _unwrap(params), cfg)
+    return _to_torch(sd)
+
+
+def jax_vq_speaker_to_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
+    """``models.vq_vae.VQSpeakerAutoEncoder`` params -> the port's
+    ``VQSpeakerAutoEncoder`` state_dict (fp32 tensors)."""
+    sd: Dict[str, np.ndarray] = {}
+    _vq(sd, _unwrap(params), cfg, decoders=("decoder_v", "decoder_a"))
     return _to_torch(sd)
 
 

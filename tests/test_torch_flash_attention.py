@@ -82,7 +82,8 @@ def _dense(q, k, v, mask_rows, causal, scale):
 
 
 CASES = [(64, 64, False, True), (64, 128, True, False), (200, 64, True, True),
-         (200, 128, False, True), (130, 64, False, False)]
+         (200, 128, False, True), (130, 64, False, False),
+         (130, 96, False, True)]  # D = 96: the speaker VQ's 768 / 8 heads
 
 
 @pytest.mark.parametrize("l,d,causal,masked", CASES)

@@ -127,6 +127,7 @@ def _run(lib, rows, l, d, causal, mask_kind, strided, seed):
     (4, 200, 48, False, "random", False),   # D = 48: 6 chunks in 8-chunk swizzled rows
     (4, 193, 48, False, "prefix", False),   # D = 48, length masks and a ragged tail
     (4, 130, 48, True, "random", True),     # D = 48, causal and masked, strided
+    (4, 65, 96, False, "random", False),    # D = 96: 12 chunks in 16-chunk swizzled rows
 ])
 def test_emulated_kernels_match_plain(lib, rows, l, d, causal, mask_kind, strided):
     got, want, mask = _run(lib, rows, l, d, causal, mask_kind, strided, seed=l + d)

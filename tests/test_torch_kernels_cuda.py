@@ -129,6 +129,8 @@ def test_nearest_code_kernel_orders_nan_as_the_plain_version(cuda):
     (8, 200, 48, False, True),    # D = 48 (the VQ-VAEs' heads), ragged tail, key mask
     (8, 130, 48, True, True),     # D = 48, causal and masked
     (6, 1024, 48, False, False),  # D = 48 at a VQ training clip's length, no mask
+    (8, 130, 96, False, True),    # D = 96 (the speaker VQ's heads), tail tile, key mask
+    (8, 1024, 96, False, False),  # D = 96 at the speaker VQ's training shape
 ])
 def test_flash_attention_kernels_match_plain(cuda, dtype, tol, rows, l, d, causal, masked):
     """K2 (o, lse) and K3 (dq, dk, dv) against their plain versions; errors

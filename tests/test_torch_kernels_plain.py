@@ -179,11 +179,12 @@ def test_k4_plain_orders_nan_as_jax():
     assert (out[np.arange(20) != 4] == 17).all()
 
 
-@pytest.mark.parametrize("d", [48, 64, 128, 40])
+@pytest.mark.parametrize("d", [48, 64, 96, 128, 40])
 def test_k23_head_widths_the_kernels_take(d):
-    """K2/K3 are built for D in {48, 64, 128} (48: the VQ-VAEs' 384 / 8
-    heads); the wrapper's check, which runs before every launch on the card,
-    refuses any other D and names it."""
+    """K2/K3 are built for D in {48, 64, 96, 128} (48: the listener VQ's
+    384 / 8 heads, 96: the speaker VQ's 768 / 8); the wrapper's check, which
+    runs before every call on either device, refuses any other D and names
+    it."""
     from dyadic_interaction_modeling_tpu_torch.kernels.attention import KERNEL_D, _check
 
     x = torch.zeros(4, 32, d)
@@ -201,3 +202,31 @@ def test_build_compiles_every_source_in_csrc():
     assert sorted(SOURCES) == on_disk
     for name in on_disk:
         assert '#include "kernels.h"' in (CSRC / name).read_text(), name
+
+
+def test_k23_head_width_limit_is_the_same_on_every_device():
+    """A CPU tensor at a width K2/K3 lack (D = 8) raises the card's
+    ValueError in the forward, the backward and the differentiable call."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd)
+
+    x, lse = torch.zeros(4, 32, 8), torch.zeros(4, 32)
+    for call in (lambda: flash_attention(x, x, x, scale=0.5),
+                 lambda: flash_attention_fwd(x, x, x, causal=False, scale=0.5),
+                 lambda: flash_attention_bwd(x, x, x, x, x, lse, causal=False, scale=0.5)):
+        with pytest.raises(ValueError, match="D = 8"):
+            call()
+
+
+def test_k1_head_width_limit_is_the_same_on_every_device():
+    """K1 takes D in {64, 128}; a CPU tensor at D = 32 raises as on the card."""
+    q, k, v = (torch.from_numpy(x) for x in _mk(2, 16, 32, nq=2, seed=12))
+    with pytest.raises(ValueError, match="D % 8 == 0.*got D=32"):
+        decode_attention(q, k, v, 7, scale=0.125)
+
+
+def test_k4_latent_width_limit_is_the_same_on_every_device():
+    """K4 takes e_dim <= 256; a CPU latent of 257 raises as on the card."""
+    with pytest.raises(ValueError, match="e_dim <= 256, got e_dim = 257"):
+        nearest_code(torch.zeros(4, 257), torch.zeros(8, 257))
+    assert nearest_code(torch.zeros(4, 256), torch.zeros(8, 256)).shape == (4,)

@@ -47,9 +47,11 @@ def test_port_imports_with_jax_blocked():
     names = set(proc.stdout.split())
     assert len(names) >= 20
     # the training stages' modules (VQ tokenizer training, SLMFT finetune)
+    # and the CLIs' files, configs and checkpoints
     assert {f"dyadic_interaction_modeling_tpu_torch.{m}" for m in (
         "cli.train_vq", "cli.finetune_s2s_pretrain", "engine.vq_engine",
-        "utils.checkpoint", "metrics.loss")} <= names
+        "utils.checkpoint", "metrics.loss", "cli.common", "data.datasets",
+        "data.reference_files", "models")} <= names
 
 
 def test_entry_points_default_to_cuda():

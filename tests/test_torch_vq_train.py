@@ -1,7 +1,9 @@
 """The torch port's VQ-VAE tokenizer training against the JAX package's, at a
-small width (hidden 32, 2 + 2 layers, 4 heads, 32 codes): the training
-forward at L = 512, where the port's attention takes ``flash_attention``
-(its plain version on the CPU) and the JAX package's its dense path, three
+small width (hidden 32, 2 + 2 layers, 4 heads of 8, 32 codes): the training
+forward at L = 512 at a head width K2/K3 take (hidden 48, 1 + 1 layers, one
+head of 48), where the port's attention takes ``flash_attention`` (its plain
+version on the CPU) and the JAX package's its dense path, the route by
+length, mask and head width (D = 8 takes the matmul route), three
 AdamW steps of ``make_vq_train_step`` in lockstep, the losses, the
 code-space utilities, the VQ collate and the ``train_vq`` CLI twin.
 
@@ -34,30 +36,37 @@ from dyadic_interaction_modeling_tpu_torch.utils.weights import jax_vq_to_state_
 
 SMALL = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
              intermediate_size=64, n_embed=32, zquant_dim=16)
+# a head width of the kernels (D = 48, the listener VQ's); one layer a side
+# keeps the decoder's outputs small enough for the absolute 1e-5
+FLASH_WIDTH = dict(SMALL, hidden_size=48, num_hidden_layers=1, num_attention_heads=1)
 L = 512  # the shortest clip that takes K2/K3 in the port
 TOL = 1e-5
 LR, WD = 1e-3, 0.01
 
 
-def _cfg(mod):
+def _cfg(mod, width=SMALL):
     cfg = mod.vq_listener_defaults()
-    cfg.update(SMALL)
+    cfg.update(width)
     return cfg
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jm = JVQ(_cfg(JC))
+def _pair(width):
+    jm = JVQ(_cfg(JC, width))
     x = np.random.default_rng(0).standard_normal((1, 24, 56)).astype(np.float32)
     params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
-    sd = jax_vq_to_state_dict(jax.tree_util.tree_map(np.asarray, params), _cfg(TC))
+    sd = jax_vq_to_state_dict(jax.tree_util.tree_map(np.asarray, params), _cfg(TC, width))
 
     def torch_model():
-        tm = VQAutoEncoder(_cfg(TC))
+        tm = VQAutoEncoder(_cfg(TC, width))
         tm.load_state_dict(sd, strict=True)
         return tm
 
     return jm, params, torch_model
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(SMALL)
 
 
 def _clips(b, l, seed):
@@ -85,16 +94,16 @@ def flash_calls(monkeypatch):
     return calls
 
 
-def test_forward_at_flash_length_matches_jax(pair, flash_calls):
+def test_forward_at_flash_length_matches_jax(flash_calls):
     """dec, emb_loss, perplexity within 1e-5 and exact codes; every
-    attention layer of the port (2 encoder + 2 decoder) went through
-    flash_attention with (B·H, L, 8) rows."""
-    jm, params, torch_model = pair
+    attention layer of the port (1 encoder + 1 decoder) went through
+    flash_attention with (B·H, L, 48) rows."""
+    jm, params, torch_model = _pair(FLASH_WIDTH)
     x = _clips(2, L, seed=1)
     dec, emb_loss, enc = jax.jit(lambda p, x: jm.apply({"params": p}, x))(params, x)
     with torch.no_grad():
         tdec, temb, tenc = torch_model()(torch.from_numpy(x))
-    assert flash_calls == [torch.Size([2 * 4, L, 8])] * 4
+    assert flash_calls == [torch.Size([2, L, 48])] * 2
     np.testing.assert_array_equal(tenc.indices.numpy(), np.asarray(enc.indices))
     np.testing.assert_allclose(tdec.numpy(), np.asarray(dec), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(float(temb), float(emb_loss), atol=TOL, rtol=TOL)
@@ -103,15 +112,17 @@ def test_forward_at_flash_length_matches_jax(pair, flash_calls):
     np.testing.assert_allclose(tenc.quant.numpy(), np.asarray(enc.quant), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("l,mask,flash", [
-    (511, None, False), (512, None, True), (1024, None, True),
-    (512, "key", True),   # a (B, 1, L) length mask is a key mask: K2/K3
-    (512, "full", False),  # any other mask keeps the matmul route
+@pytest.mark.parametrize("l,mask,heads,flash", [
+    (511, None, 2, False), (512, None, 2, True), (1024, None, 2, True),
+    (512, "key", 2, True),   # a (B, 1, L) length mask is a key mask: K2/K3
+    (512, "full", 2, False),  # any other mask keeps the matmul route
+    (512, None, 12, False),  # D = 8, a width K2/K3 lack: the matmul route
 ])
-def test_attention_route_by_length_and_mask(flash_calls, l, mask, flash):
+def test_attention_route_by_length_and_mask(flash_calls, l, mask, heads, flash):
+    """D = 96 / heads: K2/K3 at 48, the matmul route at 8, on every device."""
     torch.manual_seed(0)
-    attn = TT.Attention(32, heads=4)
-    x = torch.randn(2, l, 32)
+    attn = TT.Attention(96, heads=heads)
+    x = torch.randn(2, l, 96)
     m = None
     if mask == "key":
         m = (torch.arange(l)[None, :] < torch.tensor([l, l - 100])[:, None])[:, None, :]
@@ -119,7 +130,7 @@ def test_attention_route_by_length_and_mask(flash_calls, l, mask, flash):
         m = torch.ones(l, l, dtype=torch.bool).tril()
     with torch.no_grad():
         out = attn(x, m)
-        q, k, v = (TT.split_heads(t, 4) for t in attn.to_qkv(x).chunk(3, dim=-1))
+        q, k, v = (TT.split_heads(t, heads) for t in attn.to_qkv(x).chunk(3, dim=-1))
         mm = None if m is None else (m[None, None] if m.dim() == 2 else m[:, None])
         ref = attn.to_out(TT.merge_heads(TT.attend(q, k, v, attn.scale, mm)))
     assert len(flash_calls) == int(flash)
