@@ -13,7 +13,9 @@ line):
 
 1. device: the card's name and power limit as nvidia-smi prints them;
 2. build: ``torch.utils.cpp_extension.load`` of every source in ``csrc/``
-   (sm_90a), timed;
+   (sm_90a), timed, and beside it ``nvcc -Xptxas -v`` of
+   ``flash_attention.cu`` alone: one line of registers and spills for every
+   fp32 K2/K3 instantiation;
 3. K4 ``nearest_code`` at (6400, 128) x (512, 128) fp32: exact indices on
    inputs with a margin, >= 99.9% agreement on plain random inputs, a NaN
    latent gets code 0; the same at the SLM training step's (8192, 128), at
@@ -25,9 +27,9 @@ line):
    and device tensor); cross (300, 10, 64) and MQA cross (25, 120, 64) with
    a key mask holding one fully masked row (exactly 0), and in bf16 three
    more calls bitwise equal to the first;
-5. K2/K3 ``flash_attention_fwd``/``_bwd`` in fp32 (the CUDA-core kernels)
-   and bf16 (the tensor-core kernels) at the training step's four shapes, one
-   D = 128 case and L = 2048 (``enc_max_seq_len`` as the joint encoder
+5. K2/K3 ``flash_attention_fwd``/``_bwd`` in fp32 (3xTF32) and bf16, both
+   on the tensor cores, at the training step's four shapes, one D = 128
+   case and L = 2048 (``enc_max_seq_len`` as the joint encoder
    reaches it), ragged key masks (one batch entry fully masked at
    (384, 512, 64): zero output and gradients), a causal tail tile at
    L = 255; the VQ-VAEs' head width D = 48 at scale 384 ** -0.5, (8, 1024,
@@ -50,8 +52,10 @@ line):
 7. times of generation and of K1/K4 (below), then grouped-query generation:
    the same with ``attn_kv_heads=1`` (one K/V head; cross attention folds
    G = 12 heads x N = 10 samples into NQ = 120 query rows), one generate
-   call with the same launch counts, then its fp32 teacher-forced check at
-   B0=2, N=10;
+   call with the same launch counts, and one at N = 22 (NQ = 264, past
+   K1's 256: each cross step runs K1 on two slices of 132 rows, so K1
+   launches three times a layer and step), then the fp32 teacher-forced
+   check at B0=2, N=10 and at B0=1, N=22;
 8. training at full width: SLM, fp32 parameters under bf16 autocast, AdamW
    (1e-5, weight decay 0.01) with clip 1.0 and the VQ encoders and
    quantizers frozen, 32 synthetic CANDOR clips of L=256 (``bench.py:54``):
@@ -74,7 +78,8 @@ line):
    times the host's path to the launch; ``graph_ms``, the same launches
    replayed from a CUDA graph between a pair of events, the card alone
    (K1 self, cross and MQA cross, K4, K2/K3, and SDPA beside K1-K3 as
-   ``library_graph_ms``); the training step's median, and three steps under
+   ``library_graph_ms``; in fp32 also the names of the kernels SDPA ran,
+   from a trace); the training step's median, and three steps under
    ``torch.profiler`` tracing the card only (device busy share of that
    window, top device kernels);
 10. VQ-VAE tokenizer training at full width (``vq_listener_defaults()``:
@@ -110,19 +115,24 @@ line):
     0 in epoch 2's), ``finetune_s2s_pretrain`` from the pretrain checkpoint
     and ``test_s2s_pretrain`` from the finetune checkpoint, with each
     twin's launch counts;
-14. the VQ attention at D = 48 by both routes (``attend`` and K2/K3),
-    forward and backward, graph-timed at L = 256 and 1024 in fp32 and bf16;
-    then the ``kernels`` JSON line and, last, the device JSON line.
+14. the VQ attention at D = 48 and 96 by both routes (``attend`` and
+    K2/K3), forward and backward, graph-timed at L = 256, 512, 768 and 1024
+    in fp32 and bf16; then the ``kernels`` JSON line and, last, the device
+    JSON line.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
-bf16 on tensor cores, 67 TFLOP/s fp32 on CUDA cores.
+bf16 on tensor cores, 67 TFLOP/s fp32 on CUDA cores (K4), and for fp32
+K2/K3, whose products are three TF32 ones each, 495 / 3 = 165 TFLOP/s.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +143,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32 K2/K3 run in 3xTF32: three TF32 operations on the tensor cores
+# (495 TFLOP/s) for each fp32 one
+FP32_ATTN_OPS = 495e12 / 3
 B0, N, L = 25, 10, 256
 FAILURES = []
 
@@ -218,8 +231,9 @@ def _autograd_pair(f, inputs, grad_out):
             lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True))
 
 
-def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+def bound_ms(nbytes: float, ops: float, dtype, ops_per_s=None) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (ops_per_s or PEAK_OPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -299,14 +313,35 @@ def device():
 
 @phase
 def build():
+    """The extension, and beside it ``nvcc -Xptxas -v`` of the fp32 attention
+    source alone: registers and spills of every instantiation."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dyadic_interaction_modeling_tpu_torch.cli.flash_mma_resources import resources
     from dyadic_interaction_modeling_tpu_torch.kernels import build as B
 
-    t0 = time.perf_counter()
-    B.extension()
-    secs = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        ptxas = pool.submit(resources, "flash_attention.cu")
+        t0 = time.perf_counter()
+        B.extension()
+        secs = time.perf_counter() - t0
+        _, code, output, lines = ptxas.result()
     say(f"built {', '.join(B.SOURCES)} with torch.utils.cpp_extension.load in "
         f"{secs:.1f} s (nvcc {' '.join(B.CUDA_FLAGS)})")
-    return secs
+    check(code == 0, f"nvcc -Xptxas -v flash_attention.cu exits {code}"
+          + ("" if code == 0 else f": {output[-2000:]}"))
+    kernels = {}
+    for name, line in lines:
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_bytes", r"(\d+) bytes spill stores")):
+            found = re.search(pat, line)
+            if found:
+                kernels.setdefault(name, {})[key] = int(found.group(1))
+    sha = hashlib.sha1((B.CSRC / "flash_attention.cu").read_bytes()).hexdigest()[:12]
+    say(f"ptxas flash_attention.cu (fp32 K2/K3, 3xTF32; sha1 {sha}): " + "; ".join(
+        f"{name} {r.get('registers')} regs {r.get('spill_bytes')} B spilled"
+        for name, r in kernels.items()))
+    return secs, kernels
 
 
 def _dist64(z, e, idx):
@@ -548,12 +583,14 @@ def _clips(n_clips, seed=3):
             for c in PaddedBatchLoader(ds, n_clips, shuffle=False)]
 
 
-def _generate(kv_heads):
-    """Best-of-N generation of B0 clips, every launch count set to 0 just
-    before and read just after."""
+def _generate(kv_heads, n=N):
+    """Best-of-n generation of B0 clips, every launch count set to 0 just
+    before and read just after. K1 takes a cross step's G n query rows a
+    context whole while they fit it (``MAX_NQ``), else in equal slices."""
     from dyadic_interaction_modeling_tpu_torch import kernels
     from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import (
         evaluate_test_epoch, make_slmft_generator)
+    from dyadic_interaction_modeling_tpu_torch.kernels.decode import MAX_NQ
     from dyadic_interaction_modeling_tpu_torch.metrics.reporting import print_metrics
 
     model, slm_cfg = _model(torch.bfloat16, kv_heads=kv_heads)
@@ -570,20 +607,23 @@ def _generate(kv_heads):
     rng = torch.Generator(device="cuda").manual_seed(0)
     kernels.reset_launch_counts()
     y_true, y_pred, xs, _ = evaluate_test_epoch(model, traced, batches, rng,
-                                                beam_size=N, device="cuda")
+                                                beam_size=n, device="cuda")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    tag = "MQA (attn_kv_heads=1) " if kv_heads else ""
-    say(f"launches in the {tag}best-of-{N} run: {launches}")
+    tag = f"MQA (attn_kv_heads=1) best-of-{n} " if kv_heads else f"best-of-{n} "
+    say(f"launches in the {tag}run: {launches}")
     cands, tokens = seen["cands"], seen["tokens"]
-    check(tuple(cands.shape) == (B0, N, L - 1, 56),
-          f"{tag}candidate shape {tuple(cands.shape)} == {(B0, N, L - 1, 56)}")
+    check(tuple(cands.shape) == (B0, n, L - 1, 56),
+          f"{tag}candidate shape {tuple(cands.shape)} == {(B0, n, L - 1, 56)}")
     check(bool(torch.isfinite(cands.float()).all()), f"{tag}candidates finite")
     check(bool(((tokens >= 0) & (tokens < 512)).all()), f"{tag}tokens in [0, 512)")
-    want = {"decode_attention": (L - 1) * 4 * 2, "flash_attention_fwd": 0,
+    cross_nq = (slm_cfg["dec_heads"] // (kv_heads or slm_cfg["dec_heads"])) * n
+    slices = -(-cross_nq // MAX_NQ)
+    want = {"decode_attention": (L - 1) * 4 * (1 + slices), "flash_attention_fwd": 0,
             "flash_attention_bwd": 0, "nearest_code": 2}
-    check(launches == want, f"{tag}generation launches {launches} == {want} (K1 self and "
-          "cross in 4 decoder layers x 255 steps, K4 twice, no K2/K3)")
+    check(launches == want, f"{tag}generation launches {launches} == {want} (K1 "
+          f"on the self step and {slices} slice(s) of the cross step's {cross_nq} rows "
+          "in 4 decoder layers x 255 steps, K4 twice, no K2/K3)")
     m = print_metrics(y_true, y_pred, xs, verbose=False)
     fd = [m[k] for k in ("fid_pose", "fid_exp", "mse_pose", "mse_exp")]
     check(all(v == v and abs(v) != float("inf") for v in fd),
@@ -596,13 +636,19 @@ def slice_main_path():
     return _generate(kv_heads=0)
 
 
+MQA_WIDE_N = 22  # G N = 264 query rows a context: past K1's 256, two slices
+
+
 @phase
 def mqa_main_path():
     """Grouped-query generation (one K/V head: step_cross folds G = 12 heads
-    x N = 10 samples into NQ = 120 query rows a context), one generate call."""
+    x N = 10 samples into NQ = 120 query rows a context), one generate call;
+    then one at N = MQA_WIDE_N, whose cross steps K1 takes in two slices."""
     launches = _generate(kv_heads=1)[3]
     torch.cuda.empty_cache()
-    return launches
+    wide = _generate(kv_heads=1, n=MQA_WIDE_N)[3]
+    torch.cuda.empty_cache()
+    return launches, wide
 
 
 def _reference(b0, n, kv_heads):
@@ -654,6 +700,13 @@ def slice_reference():
 def mqa_reference():
     """Cross attention at NQ = G x N = 120 query rows a context."""
     return _reference(2, N, kv_heads=1)
+
+
+@phase
+def mqa_wide_reference():
+    """Cross attention at NQ = G x N = 264 query rows a context, past
+    ``MAX_NQ``: K1 on two slices against the plain step."""
+    return _reference(1, MQA_WIDE_N, kv_heads=1)
 
 
 TRAIN_B, TRAIN_STEPS, WARMUP_STEPS, PROFILED_STEPS = 32, 10, 3, 3
@@ -782,7 +835,8 @@ def train_reference():
 def _attn_bound(rows, l, d, dtype, mask, causal, bwd):
     """Bytes each input is read and each output written once; operations of
     the (query, key) pairs this data attends: 4 D per pair forward (Q Kᵀ,
-    P V), 10 D backward (Q Kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ Q)."""
+    P V), 10 D backward (Q Kᵀ, dO Vᵀ, Pᵀ dO, dS K, dSᵀ Q), at the bf16 rate,
+    or in fp32 at the 3xTF32 one (``FP32_ATTN_OPS``)."""
     es = torch.finfo(dtype).bits // 8
     if mask is not None:  # key j is attended by l - j queries under causal, else l
         w = l - torch.arange(l, device=mask.device) if causal else l
@@ -793,9 +847,10 @@ def _attn_bound(rows, l, d, dtype, mask, causal, bwd):
         pairs = rows * l * l
     extra = rows * l * 4 + (0 if mask is None else mask.numel())
     io = rows * l * d * es
+    rate = FP32_ATTN_OPS if dtype == torch.float32 else None
     if bwd:
-        return bound_ms(8 * io + extra, 10 * d * pairs, dtype)
-    return bound_ms(4 * io + extra, 4 * d * pairs, dtype)
+        return bound_ms(8 * io + extra, 10 * d * pairs, dtype, rate)
+    return bound_ms(4 * io + extra, 4 * d * pairs, dtype, rate)
 
 
 def _trace_steps(step, args, what):
@@ -837,6 +892,20 @@ def _trace_steps(step, args, what):
     for name, tot, cnt in top:
         say(f"  {tot / 1e3:9.3f} ms  {cnt:7.1f} x  {name[:100]}")
     return windows, top
+
+
+def _kernel_names(fn):
+    """The names of the device kernels that a call of ``fn`` runs (three
+    calls are traced: a window of one call has come back without its device
+    events)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
 
 
 @phase
@@ -895,6 +964,10 @@ def train_timings(train):
         bwd["bound_ms"], bwd["bound_by"] = _attn_bound(rows, l, d, dt, mask, causal, True)
         cases[key] = {"per_step": per_step if dt == bf else 0, "dtype": str(dt)[6:],
                       "fwd": fwd, "bwd": bwd}
+        if dt == torch.float32:  # which of PyTorch's fp32 attention kernels SDPA ran
+            cases[key]["sdpa_kernels"] = [n for n in _kernel_names(lambda: (sdpa(), sdpa_bwd()))
+                                          if "fmha" in n or "ttention" in n]
+            say(f"SDPA {key}: {[n[:70] for n in cases[key]['sdpa_kernels']]}")
         for tag, r in (("K2", fwd), ("K3", bwd)):
             say(f"{tag} {key}{'' if dt != bf else ' bf16'}: kernel {r['ms'] * 1e3:.1f} us, "
                 f"plain {r['plain_ms'] * 1e3:.1f} us, SDPA {r['library_ms'] * 1e3:.1f} us, "
@@ -1475,35 +1548,37 @@ def real_files_path():
 
 @phase
 def vq_attention_routes():
-    """The VQ attention at D = 48 by both routes, forward and forward +
-    backward, graph-timed (the card alone): the matmul path (``attend``) and
-    K2/K3, at L = 256 and 1024, 8 rows (one clip, 8 heads), fp32 and bf16.
-    These set the port's L >= 512 gate in a later change."""
+    """The VQ attention by both routes, forward and backward, graph-timed
+    (the card alone): the matmul path (``attend``) and K2/K3, at the
+    listener's D = 48 and the speaker's D = 96, L = 256, 512, 768 and 1024, 8
+    rows (one clip, 8 heads), fp32 and bf16. These set ``FLASH_MIN_LEN``,
+    the VQ attention's gate (``ops/transformer.py``)."""
     from dyadic_interaction_modeling_tpu_torch.kernels.attention import flash_attention
     from dyadic_interaction_modeling_tpu_torch.ops.transformer import attend
 
     g = torch.Generator(device="cuda").manual_seed(9)
     out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        for l in (256, 1024):
-            q, k, v, do = (torch.randn(1, 8, l, 48, device="cuda", generator=g).to(dt)
-                           for _ in range(4))
-            routes = {"attend": lambda q, k, v: attend(q, k, v, VQ_SCALE, None),
-                      "flash": lambda q, k, v: flash_attention(
-                          q[0], k[0], v[0], scale=VQ_SCALE)[None]}
-            for route, f in routes.items():
-                fwd, _ = _autograd_pair(f, (q, k, v), do)
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    _, bwd = _autograd_pair(f, (q, k, v), do)
-                torch.cuda.current_stream().wait_stream(side)
-                r = {"fwd_graph_ms": graph_ms(fwd), "bwd_graph_ms": graph_ms(bwd, stream=side)}
-                out[f"{route} {str(dt)[6:]} L={l}"] = r
-                say(f"VQ attention (8,{l},48) {str(dt)[6:]} by {route}: forward "
-                    f"{r['fwd_graph_ms'] * 1e3:.1f} us, backward {r['bwd_graph_ms'] * 1e3:.1f} "
-                    "us (from a CUDA graph)")
-            del q, k, v, do
+    for (d, scale), dt, l in itertools.product(((48, VQ_SCALE), (96, SPK_SCALE)),
+                                               (torch.float32, torch.bfloat16),
+                                               (256, 512, 768, 1024)):
+        q, k, v, do = (torch.randn(1, 8, l, d, device="cuda", generator=g).to(dt)
+                       for _ in range(4))
+        routes = {"attend": lambda q, k, v, scale=scale: attend(q, k, v, scale, None),
+                  "flash": lambda q, k, v, scale=scale: flash_attention(
+                      q[0], k[0], v[0], scale=scale)[None]}
+        for route, f in routes.items():
+            fwd, _ = _autograd_pair(f, (q, k, v), do)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                _, bwd = _autograd_pair(f, (q, k, v), do)
+            torch.cuda.current_stream().wait_stream(side)
+            r = {"fwd_graph_ms": graph_ms(fwd), "bwd_graph_ms": graph_ms(bwd, stream=side)}
+            out[f"{route} {str(dt)[6:]} D={d} L={l}"] = r
+            say(f"VQ attention (8,{l},{d}) {str(dt)[6:]} by {route}: forward "
+                f"{r['fwd_graph_ms'] * 1e3:.1f} us, backward {r['bwd_graph_ms'] * 1e3:.1f} "
+                "us (from a CUDA graph)")
+        del q, k, v, do
     return out
 
 
@@ -1615,8 +1690,8 @@ def _flash_entry(name, line, which, tt, k23, by_path):
             "cases": {k: c[which] for k, c in cases.items()}, "max_err": k23}
 
 
-def kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1, k23, t, tt,
-                 routes, refs, ft64, build_s):
+def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k4, k1, k23,
+                 t, tt, routes, refs, ft64, build_s, ptxas):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
@@ -1631,8 +1706,10 @@ def kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1, k23
         out = {} if generate is None else generate
         return {**out, **{path: counts[name] for path, counts in paths.items()}}
 
+    wide = f"generate_mqa_best_of_{MQA_WIDE_N}"
     k4_paths = by_path("nearest_code", {"generate": gen_launches["nearest_code"],
-                                        "generate_mqa": mqa_launches["nearest_code"]})
+                                        "generate_mqa": mqa_launches["nearest_code"],
+                                        wide: mqa_wide["nearest_code"]})
     return {"kernels": [
         {"name": "decode_attention", "route": "cuda",
          "source": "dyadic_interaction_modeling_tpu_torch/csrc/decode_attention.cu",
@@ -1640,7 +1717,8 @@ def kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1, k23
          "launches": gen_launches["decode_attention"],
          "launches_by_path": by_path("decode_attention", {
              "generate": gen_launches["decode_attention"],
-             "generate_mqa": mqa_launches["decode_attention"]}),
+             "generate_mqa": mqa_launches["decode_attention"],
+             wide: mqa_wide["decode_attention"]}),
          "max_abs_err": k1["bfloat16"], **mean, "bound_by": "bytes",
          "cases": {"self (3000,1,64) L=256 t=0..255 bf16": self_,
                    "cross (300,10,64) L=256 masked bf16": cross,
@@ -1653,7 +1731,7 @@ def kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1, k23
         {"name": "nearest_code", "route": "cuda",
          "source": "dyadic_interaction_modeling_tpu_torch/csrc/vq_argmin.cu",
          "replaces": "dyadic_interaction_modeling_tpu/ops/pallas/vq.py:49",
-         "launches": sum(v for k, v in k4_paths.items() if k != "generate_mqa"),
+         "launches": sum(v for k, v in k4_paths.items() if not k.startswith("generate_mqa")),
          "launches_by_path": k4_paths,
          "max_abs_err": k4["max_abs_err"], **t["vq"], "agree": k4["agree"],
          "cases": {"(6400,128) x (512,128) fp32 (generate)": t["vq"],
@@ -1678,7 +1756,8 @@ def kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1, k23
         "speaker_vq_train_busy_share": spk["windows"]["card"]["busy_share"],
         "speaker_vq_train_traced_windows": spk["windows"],
         "speaker_vq_reference": refs["speaker_vq_train"], "real_files": rf,
-        "finetune_fp64_reference": ft64, "vq_attention_routes": routes, "build_s": build_s}
+        "finetune_fp64_reference": ft64, "vq_attention_routes": routes, "build_s": build_s,
+        "ptxas_fp32_attention": ptxas}
 
 
 def main() -> int:
@@ -1692,7 +1771,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = device()
-    build_s = build()
+    built = build()
+    build_s, ptxas = built if built else (None, None)
     k4 = k4_check()
     k1 = k1_check()
     k23 = k23_check()
@@ -1702,8 +1782,10 @@ def main() -> int:
     gen_launches = main_run[3] if main_run else None
     del main_run
     torch.cuda.empty_cache()
-    mqa_launches = mqa_main_path()
+    mqa = mqa_main_path()
+    mqa_launches, mqa_wide = mqa if mqa else (None, None)
     mqa_ref = mqa_reference()
+    mqa_wide_ref = mqa_wide_reference()
     train = train_main_path()
     train_ref = train_reference()
     tt = train_timings(train) if train else None
@@ -1720,15 +1802,15 @@ def main() -> int:
     rf = real_files_path()
     torch.cuda.empty_cache()
     routes = vq_attention_routes()
-    if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_ref, train,
-                            train_ref, tt, vq, vq_ref, ft, ft_ref, ft64, spk, spk_ref, rf,
-                            routes):
+    if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_wide, mqa_ref,
+                            mqa_wide_ref, train, train_ref, tt, vq, vq_ref, ft, ft_ref,
+                            ft64, spk, spk_ref, rf, routes):
         say(f"FAILED: {FAILURES}")
         return 1
     refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
             "speaker_vq_train": spk_ref}
-    say(json.dumps(kernels_line(gen_launches, mqa_launches, train, vq, ft, spk, rf, k4, k1,
-                                k23, t, tt, routes, refs, ft64, build_s)))
+    say(json.dumps(kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf,
+                                k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

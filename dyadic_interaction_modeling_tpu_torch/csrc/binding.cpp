@@ -24,8 +24,8 @@ int mask_div(const torch::Tensor& q, const c10::optional<torch::Tensor>& key_mas
 }
 
 // K2 and K3 have two sets of kernels, and this is where a call takes one:
-// bf16 the tensor-core kernels (flash_attention_mma.cu), fp32 the exact
-// CUDA-core kernels (flash_attention.cu).
+// bf16 the kernels of flash_attention_mma.cu, fp32 the 3xTF32 kernels of
+// flash_attention.cu, both on the tensor cores.
 bool takes_mma(const torch::Tensor& q) { return q.scalar_type() == torch::kBFloat16; }
 
 // K1's arrival counters, one buffer a device: zero when made, and every

@@ -1,6 +1,6 @@
 // Flash attention in bf16 on Hopper's tensor cores: forward (K2) and backward
-// (K3) for sm_90a. fp32 inputs keep the exact CUDA-core kernels of
-// flash_attention.cu; the binding picks by dtype.
+// (K3) for sm_90a. fp32 inputs take the 3xTF32 kernels of flash_attention.cu;
+// the binding picks by dtype.
 //
 // Replaces the TPU kernels of dyadic_interaction_modeling_tpu/ops/pallas/
 // attention.py: `_fwd` (:111, body `_fwd_kernel` :47) and `_bwd` (:152, body

@@ -1,5 +1,6 @@
 // The instructions the tensor-core kernels are written on, as inline PTX:
-// cp.async, ldmatrix, mma.sync.m16n8k16 in bf16 and ex2. Nothing else in the
+// cp.async, ldmatrix, mma.sync.m16n8k16 in bf16, mma.sync.m16n8k8 in TF32
+// with cvt.rna.tf32.f32, and ex2. Nothing else in the
 // kernels is PTX, so a host build that puts lane-exact emulations of these
 // wrappers in this header's place (tests/cuda_host_emulation/) runs the
 // kernels' fragment and tile arithmetic on the CPU.
@@ -57,6 +58,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero): a
+// 32-bit register whose low 13 bits are 0, read as fp32 it is that value.
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// c += a . b on the tensor cores, TF32 operands (m16n8k8), fp32 accumulator.
+// Fragments (g = lane / 4, t = lane % 4): a0 (row g, k t), a1 (row g + 8,
+// k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4); b0 (k t, column g),
+// b1 (k t + 4, column g); c as mma_bf16's.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -1,6 +1,6 @@
-// Element loads and stores shared by the attention kernels: 16-byte vector
+// Element loads and stores of the decode attention kernels: 16-byte vector
 // loads converted to fp32, and fp32 results stored in the tensor's dtype
-// (fp32 or bf16). Both kernels compute in fp32 whatever the storage type.
+// (fp32 or bf16). The kernels compute in fp32 whatever the storage type.
 
 #pragma once
 
@@ -22,12 +22,5 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// x rounded to T's precision and back: the cast of probabilities to v's
-// dtype before P.V.
-__device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 }  // namespace

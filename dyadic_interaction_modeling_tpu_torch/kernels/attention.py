@@ -2,12 +2,13 @@
 
 Replaces ``dyadic_interaction_modeling_tpu/ops/pallas/attention.py``:
 ``_fwd`` (:111) and ``_bwd`` (:152), bound together by the custom VJP of
-``flash_attention`` (:194-213). On the card bf16 tensors run the tensor-core
-kernels of ``csrc/flash_attention_mma.cu`` and fp32 tensors the exact
-CUDA-core kernels of ``csrc/flash_attention.cu`` (the binding picks by
+``flash_attention`` (:194-213). On the card bf16 tensors run the kernels of
+``csrc/flash_attention_mma.cu`` and fp32 tensors those of
+``csrc/flash_attention.cu``, both on the tensor cores (the binding picks by
 dtype); see the sources for the designs and their bounds. The bf16 backward
 rounds P and dS to bf16 as operands of its products, which the plain version
-keeps in fp32.
+keeps in fp32; the fp32 kernels split every operand into two TF32 terms and
+multiply in three products (3xTF32), which keeps them within 1e-5 of it.
 
 Rows are batch x head: q, k, v are (R, L, D). A key mask is (R // m, L),
 True = attend, shared by m consecutive rows (m = heads), as K1 takes it. A

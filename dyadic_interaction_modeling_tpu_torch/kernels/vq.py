@@ -16,10 +16,12 @@ MAX_E_DIM = 256  # the widest latent the kernel is built, tested and timed for
 
 def nearest_code_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """argmin_c |z|^2 + |e_c|^2 - 2 z.e_c in fp32, ties to the lowest index
-    (``ops/quantizer.py:64-71`` of the JAX package, which keeps |z|^2)."""
+    (``ops/quantizer.py:64-71`` of the JAX package, which keeps |z|^2), also
+    under an autocast that would take the product to a lower precision."""
     z32, e32 = z.float(), codebook.float()
-    d = ((z32 * z32).sum(dim=1, keepdim=True) + (e32 * e32).sum(dim=1)[None, :]
-         - 2.0 * (z32 @ e32.T))
+    with torch.autocast(z.device.type, enabled=False):
+        d = ((z32 * z32).sum(dim=1, keepdim=True) + (e32 * e32).sum(dim=1)[None, :]
+             - 2.0 * (z32 @ e32.T))
     return torch.argmin(d, dim=1).to(torch.int32)
 
 

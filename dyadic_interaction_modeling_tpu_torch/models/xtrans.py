@@ -21,9 +21,12 @@ their CUDA kernels on the card and their plain versions on the CPU. Each
 takes only the head widths its kernels are built for (``KERNEL_D`` of
 ``kernels/decode.py`` and ``kernels/attention.py``); any other ``dim_head``
 takes the dense path on every device, as the JAX package routes widths its
-kernels lack (``xtrans.py:54``, ``:101``). Every other attention
-(cross-attention, a self-attention with an ``attn_mask``) is a plain
-``torch.matmul`` + softmax, as the JAX package's dense path.
+kernels lack (``xtrans.py:54``, ``:101``). A decode step with more query rows
+a cache row than K1 takes (``MAX_NQ``; G = heads / kv_heads, times N in
+``step_cross``) runs K1 on slices of its rows, which are independent.
+Every other attention (cross-attention, a self-attention with an
+``attn_mask``) is a plain ``torch.matmul`` + softmax, as the JAX package's
+dense path.
 """
 
 from __future__ import annotations
@@ -38,10 +41,23 @@ from torch import nn
 from ..kernels.attention import KERNEL_D as FLASH_D
 from ..kernels.attention import flash_attention
 from ..kernels.decode import KERNEL_D as DECODE_D
-from ..kernels.decode import decode_attention, decode_attention_plain
+from ..kernels.decode import MAX_NQ, decode_attention, decode_attention_plain
 
 NEG_INF = float("-inf")
 IGNORE = -100  # the ignore_index of token targets
+
+
+def decode_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t=None,
+                key_mask: Optional[torch.Tensor] = None, *, scale: float) -> torch.Tensor:
+    """``decode_attention`` at any number of query rows a cache row (the JAX
+    package has no limit): past K1's ``MAX_NQ`` the rows, which are
+    independent, go to K1 in equal slices of at most ``MAX_NQ``."""
+    nq = q.shape[1]
+    if nq <= MAX_NQ:
+        return decode_attention(q, k, v, t, key_mask, scale=scale)
+    width = -(-nq // -(-nq // MAX_NQ))
+    return torch.cat([decode_attention(qs.contiguous(), k, v, t, key_mask, scale=scale)
+                      for qs in q.split(width, dim=1)], dim=1)
 
 
 class XTNorm(nn.Module):
@@ -151,7 +167,7 @@ class XAttention(nn.Module):
     @staticmethod
     def _step_attention(dh: int):
         """K1 at the head widths it is built for, else the dense step."""
-        return decode_attention if dh in DECODE_D else decode_attention_plain
+        return decode_rows if dh in DECODE_D else decode_attention_plain
 
     def cross_kv(self, context: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cross-attention K/V of a context, computed once per generation:
@@ -172,8 +188,9 @@ class XAttention(nn.Module):
         cache_v[:, :, t] = self.to_v(x_t).reshape(b, kvh, dh)
         # (B, 1, H*Dh) is (B, KVH, G, Dh) row-major: the folded query rows
         q = self.to_q(x_t).reshape(b * kvh, self.group, dh)
-        o = self._step_attention(dh)(q, cache_k.view(b * kvh, lmax, dh),
-                                     cache_v.view(b * kvh, lmax, dh), t, scale=self.scale)
+        attend = self._step_attention(dh)
+        o = attend(q, cache_k.view(b * kvh, lmax, dh), cache_v.view(b * kvh, lmax, dh), t,
+                   scale=self.scale)
         return self.to_out(o.reshape(b, 1, self.heads * dh))
 
     def step_cross(self, x_t: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -192,9 +209,9 @@ class XAttention(nn.Module):
                              f"and groups={groups}")
         q = self.to_q(x_t).reshape(n, b0, self.heads, dh).permute(1, 2, 0, 3)
         q = q.reshape(b0 * kvh, self.group * n, dh).contiguous()
-        o = self._step_attention(dh)(q, k.view(b0 * kvh, lk, dh),
-                                     v.view(b0 * kvh, lk, dh), None, key_mask,
-                                     scale=self.scale)
+        attend = self._step_attention(dh)
+        o = attend(q, k.view(b0 * kvh, lk, dh), v.view(b0 * kvh, lk, dh), None, key_mask,
+                   scale=self.scale)
         # (B0*KVH, G*N, Dh) -> (B0, H, N, Dh) -> (N*B0, 1, H*Dh)
         o = o.reshape(b0, self.heads, n, dh).permute(2, 0, 1, 3)
         return self.to_out(o.reshape(nb, 1, self.heads * dh))

@@ -3,7 +3,8 @@
 Counterpart of ``dyadic_interaction_modeling_tpu/ops/quantizer.py:52-148``
 (``vq_distances`` :101).
 ``nearest_code`` runs the K4 kernel on CUDA tensors and its plain version on
-CPU tensors (``kernels/vq.py``).
+CPU tensors (``kernels/vq.py``), and the dense argmin, the JAX package's
+default, on both at latent widths past the kernel's.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.vq import MAX_E_DIM, nearest_code_plain
 from ..kernels.vq import nearest_code as _nearest_code
 
 
@@ -26,8 +28,12 @@ class VQResult(NamedTuple):
 
 def nearest_code(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-codebook int32 indices for (N, e_dim) against (n_e, e_dim),
-    computed in fp32; ties go to the lowest index."""
-    return _nearest_code(z_flat.float().contiguous(), codebook.float().contiguous())
+    computed in fp32; ties go to the lowest index. K4 up to its widest
+    latent (``MAX_E_DIM``), the dense argmin past it, on every device."""
+    z32, e32 = z_flat.float().contiguous(), codebook.float().contiguous()
+    if z32.shape[1] > MAX_E_DIM:
+        return nearest_code_plain(z32, e32)
+    return _nearest_code(z32, e32)
 
 
 def vq_quantize(z: torch.Tensor, codebook: torch.Tensor,

@@ -21,8 +21,8 @@ VQ), the counterpart of the JAX package's Pallas route
 (``ops/transformer.py:98-103``); every other attention, any other head
 width included, is a plain ``torch.matmul`` + softmax (``attend``). The JAX
 package's window, 512 <= L <= 1024, was set by TPU timings: the port keeps
-its lower edge as a starting point and drops the upper one, since K2/K3 take
-any L.
+its lower edge, which the H100's timings of the two routes bear out (see
+``FLASH_MIN_LEN``), and drops the upper one, since K2/K3 take any L.
 """
 
 from __future__ import annotations
@@ -35,8 +35,14 @@ from torch import nn
 
 from ..kernels.attention import KERNEL_D, flash_attention
 
-# shortest sequence that takes K2/K3 (the JAX package's lower edge; not yet
-# set from H100 timings)
+# Shortest sequence that takes K2/K3, in fp32 and bf16: the JAX package's
+# lower edge, which the two routes' times on an H100 at 700 W keep (forward
+# + backward at 8 rows; chip_smoke.py vq_attention_routes, PERF.md §6). VQ
+# training pads clips to powers of two. At 256 the matmul route leads or
+# ties; at 1024 K2/K3 lead in both dtypes and at both VQ head widths; at 512
+# they lead in bf16 and in fp32 at the listener VQ's D = 48, and trail 1.48x
+# only in fp32 at the speaker VQ's D = 96, which trains on 1024-frame clips
+# and cannot train on the reference's files (ROADMAP.md queue 3).
 FLASH_MIN_LEN = 512
 
 

@@ -54,6 +54,8 @@ struct Copy { void* dst; const void* src; int bytes; bool valid; };
 struct Warp {
   std::barrier<> bar{32};
   uint32_t a[32][4], b[32][2];  // mma operands of every lane
+  uint32_t ta[2][32][4], tb[2][32][2];  // TF32 mma operands, two calls' worth
+  int tf32_calls[32] = {};              // each lane's count of TF32 mma calls
   uint64_t f[32];               // shuffle values (up to 64 bits)
   const void* p[32];            // ldmatrix row addresses
 };
@@ -166,6 +168,14 @@ inline uint32_t __float_as_uint(float f) {
   std::memcpy(&u, &f, 4);
   return u;
 }
+
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+inline float2 make_float2(float x, float y) { return {x, y}; }
 
 using std::isnan;
 using std::max;

@@ -2,7 +2,8 @@
 // csrc/ptx_sm90.cuh, with the same names and signatures, for the threads of
 // cuda_runtime.h beside this file. Fragment layouts are those of
 // mma.sync.aligned.m16n8k16.row.col and ldmatrix.m8n8.x4 (g = lane / 4,
-// t = lane % 4), written out here independently of the kernels' use of them:
+// t = lane % 4), written out here independently of the kernels' use of them
+// (mma.sync.aligned.m16n8k8 in TF32 below mma_bf16):
 //   A (16 x 16): a0 (row g, k 2t..2t+1), a1 (row g + 8, same k),
 //                a2 (row g, k 2t + 8..), a3 (row g + 8, k 2t + 8..)
 //   B (16 x 8):  b0 (k 2t..2t+1, column g), b1 (k 2t + 8.., column g)
@@ -115,6 +116,56 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     c[e] = sum;
   }
   w.bar.arrive_and_wait();
+}
+
+// cvt.rna.tf32.f32: to 10 mantissa bits, to nearest, ties away from zero (a
+// carry into the exponent is the next binade, past the largest finite value
+// infinity); infinities and NaNs unchanged.
+inline uint32_t cvt_tf32(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+
+// The value the tensor cores read from a TF32 operand register: its upper 19
+// bits (sign, exponent, 10 mantissa bits).
+inline float tf32_operand(uint32_t u) {
+  u &= 0xffffe000u;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. Fragments:
+//   A (16 x 8): a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4),
+//               a3 (row g + 8, k t + 4)
+//   B (8 x 8):  b0 (k t, column g), b1 (k t + 4, column g)
+//   C (16 x 8): as m16n8k16's. A product of two TF32 values is exact in fp32;
+//   the sums are fp32, k in order.
+// The operands go to one of two exchange areas by turns, so one barrier a
+// call suffices: a lane writes an area again only after every lane has
+// arrived at the next call's barrier, past its reads of that area.
+inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  auto& w = emulation::warp();
+  const int l = emulation::lane(), g = l >> 2, t = l & 3;
+  const int x = w.tf32_calls[l]++ & 1;
+  for (int i = 0; i < 4; ++i) w.ta[x][l][i] = a[i];
+  w.tb[x][l][0] = b0, w.tb[x][l][1] = b1;
+  w.bar.arrive_and_wait();
+  float A[2][8], B[8][2];  // the rows and columns of this lane's accumulators
+  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 8; ++k) {
+      // A (row g + 8h, k) is register (h + 2 (k / 4)) of lane 4 g + k % 4
+      A[h][k] = tf32_operand(w.ta[x][4 * g + (k & 3)][h + 2 * (k >> 2)]);
+      // B (k, column 2t + h) is register k / 4 of lane 4 (2t + h) + k % 4
+      B[k][h] = tf32_operand(w.tb[x][4 * (2 * t + h) + (k & 3)][k >> 2]);
+    }
+  for (int e = 0; e < 4; ++e) {
+    float sum = c[e];
+    for (int k = 0; k < 8; ++k) sum += A[e >> 1][k] * B[k][e & 1];
+    c[e] = sum;
+  }
 }
 
 inline float fast_exp2(float x) { return std::exp2(x); }

@@ -4,8 +4,9 @@ K1: ``kernels.decode.decode_attention_plain`` against the Pallas
 ``decode_attention`` in interpret mode, on the cases of
 tests/test_decode_kernel.py plus grouped query rows under a t bound.
 K4: ``kernels.vq.nearest_code_plain`` against ``ops.quantizer.nearest_code``,
-exact indices, NaN included. Also the CPU dispatch of both wrappers, and
-that the build takes every source in ``csrc/``.
+exact indices, NaN included, and the port's ``ops.quantizer.nearest_code``
+past K4's widest latent against the same. Also the CPU dispatch of both
+wrappers, and that the build takes every source in ``csrc/``.
 """
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from dyadic_interaction_modeling_tpu_torch.kernels.decode import (
     decode_attention_plain,
 )
 from dyadic_interaction_modeling_tpu_torch.kernels.vq import nearest_code, nearest_code_plain
+from dyadic_interaction_modeling_tpu_torch.ops import quantizer
 
 TOL = 1e-5  # fp32 on both sides; only the summation order differs
 
@@ -230,3 +232,49 @@ def test_k4_latent_width_limit_is_the_same_on_every_device():
     with pytest.raises(ValueError, match="e_dim <= 256, got e_dim = 257"):
         nearest_code(torch.zeros(4, 257), torch.zeros(8, 257))
     assert nearest_code(torch.zeros(4, 256), torch.zeros(8, 256)).shape == (4,)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the test run's workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("d", [257, 320])
+def test_quantizer_past_k4_width_takes_the_dense_argmin(d, one_thread):
+    """``ops.quantizer.nearest_code`` past K4's widest latent is the dense
+    fp32 argmin on every device, the JAX package's default: its indices."""
+    rng = np.random.default_rng(d)
+    z = rng.standard_normal((300, d)).astype(np.float32)
+    e = rng.standard_normal((64, d)).astype(np.float32)
+    ref = np.asarray(jax_nearest_code(jnp.asarray(z), jnp.asarray(e)))
+    out = quantizer.nearest_code(torch.from_numpy(z), torch.from_numpy(e))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_quantizer_reaches_k4_up_to_its_width(monkeypatch, one_thread):
+    widths = []
+
+    def k4(z, e):
+        widths.append(z.shape[1])
+        return nearest_code(z, e)
+
+    monkeypatch.setattr(quantizer, "_nearest_code", k4)
+    for d in (128, 256, 257):
+        quantizer.nearest_code(torch.zeros(4, d), torch.zeros(8, d))
+    assert widths == [128, 256]
+
+
+def test_quantizer_dense_argmin_stays_fp32_under_autocast(one_thread):
+    """The SLM and finetune steps quantize under a bf16 autocast: the dense
+    argmin past K4's width still computes its distances in fp32."""
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal((300, 257)).astype(np.float32)
+    e = rng.standard_normal((64, 257)).astype(np.float32)
+    ref = np.asarray(jax_nearest_code(jnp.asarray(z), jnp.asarray(e)))
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        out = quantizer.nearest_code(torch.from_numpy(z), torch.from_numpy(e))
+    np.testing.assert_array_equal(out.numpy(), ref)
