@@ -3,8 +3,9 @@
 against its plain PyTorch version, drive SLMFT best-of-10 listener generation
 (multi-head and grouped-query), the SLM pretraining step, the listener and
 speaker VQ-VAE tokenizers' training steps and the SLMFT finetune step at full
-width, then the four CLI twins on files in the reference's layout, and time
-it all.
+width, then the four CLI twins on files in the reference's layout, then the
+BIWI speaker family (SpeakerSLMFT best-of-50 generation, the test_biwi twin,
+its finetune step, the converter's training twin), and time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -115,7 +116,27 @@ line):
     0 in epoch 2's), ``finetune_s2s_pretrain`` from the pretrain checkpoint
     and ``test_s2s_pretrain`` from the finetune checkpoint, with each
     twin's launch counts;
-14. the VQ attention at D = 48 and 96 by both routes (``attend`` and
+14. the BIWI speaker family at full width (``slm_defaults()`` +
+    ``vq_listener_defaults()``, 70110-d meshes, 15 speakers, fp32, seeded
+    random weights, synthetic BIWI clips of 120 frames): SpeakerSLMFT
+    best-of-50 generation of 4 clips, one a call, through
+    ``make_speaker_generator`` and ``select_best_by_l2`` (a call: K1 952,
+    K4 2, no K2/K3; ``speaker_generate_path``), its fp32 teacher-forced
+    check at B0 = 1, N = 50, and K1 at the cross step's (12, 50, 64) over
+    120 keys with a key mask against its plain version;
+15. ``cli/test_biwi.main`` on its synthetic clips on the card (a clip: K2 4,
+    K4 2), its files and LVE / FDD, and its predictions under
+    ``plain_attention()`` (``test_biwi_twin``);
+16. the SpeakerSLMFT finetune step (4 clips of 120, AdamW 1e-5, weight decay
+    0.01, clip 1.0, ``SPEAKER_SLMFT_FROZEN``): steps timed and traced as in
+    11 with 4 K2 and 4 K3 at (48, 119, 64) causal fp32 and 2 K4 a step, and
+    its fp32 loss and gradients against the plain versions
+    (``speaker_finetune_path``);
+17. ``cli/train_converter.main`` (8 clips of 120, a mouth map, 2 epochs;
+    K4 once a step), then its step timed and traced (``converter_path``);
+18. K1 at the speaker path's fp32 shapes timed as in 9
+    (``speaker_timings``);
+19. the VQ attention at D = 48 and 96 by both routes (``attend`` and
     K2/K3), forward and backward, graph-timed at L = 256, 512, 768 and 1024
     in fp32 and bf16; then the ``kernels`` JSON line and, last, the device
     JSON line.
@@ -148,6 +169,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 FP32_ATTN_OPS = 495e12 / 3
 B0, N, L = 25, 10, 256
 FAILURES = []
+CARD = []  # the card's name and power limit, as nvidia-smi prints them
 
 
 def say(*parts):
@@ -306,6 +328,7 @@ def device():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     say(line)
+    CARD.append(line)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     return line
@@ -477,14 +500,18 @@ K23_CASES = (
     ("VQ tokenize B=4 (32,512,48) masked", 32, 512, 48, 8, "prefix", False, VQ_SCALE, 0),
     ("finetune decoder (48,255,64) causal+mask", 48, 255, 64, HEADS, "random", True, 0.125,
      0),
+    ("speaker decoder (48,119,64) causal", 48, 119, 64, HEADS, None, True, 0.125, 0),
     ("speaker VQ train (8,1024,96)", 8, 1024, 96, 8, None, False, SPK_SCALE, 0),
     ("speaker VQ B=4 (32,512,96) masked", 32, 512, 96, 8, "prefix", False, SPK_SCALE, 0),
 )
 DEAD_CASE = 1  # index of the case with one fully masked batch entry, run twice in bf16
 # the cases with one fully masked batch entry (zero output and gradients)
 DEAD_CASES = (DEAD_CASE, len(K23_CASES) - 1)
-# the VQ-VAEs' cases (D = 48 and 96), timed in fp32 (VQ training's dtype) as well
-VQ_CASES = tuple(i for i, c in enumerate(K23_CASES) if c[3] in (48, 96))
+# the cases also timed in fp32: the VQ-VAEs' (D = 48 and 96; VQ training's
+# dtype) and SpeakerSLMFT's teacher-forced decoder (fp32 in test_biwi and its
+# finetune step)
+FP32_CASES = tuple(i for i, c in enumerate(K23_CASES)
+                   if c[3] in (48, 96) or c[0].startswith("speaker decoder"))
 SOURCES = {torch.float32: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention.cu",
            torch.bfloat16: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention_mma.cu"}
 
@@ -922,9 +949,9 @@ def train_timings(train):
     g = torch.Generator(device="cuda").manual_seed(8)
     bf = torch.bfloat16
     cases = {}
-    # every case in bf16, the D = 48 (VQ) cases also in fp32, VQ training's dtype
+    # every case in bf16, the FP32_CASES also in fp32
     runs = [(c, bf, c[0]) for c in K23_CASES]
-    runs += [(K23_CASES[i], torch.float32, K23_CASES[i][0] + " fp32") for i in VQ_CASES]
+    runs += [(K23_CASES[i], torch.float32, K23_CASES[i][0] + " fp32") for i in FP32_CASES]
     for (name, rows, l, d, heads, mask_kind, causal, scale, per_step), dt, key in runs:
         q, k, v, do, mask = _attn_inputs(rows, l, d, heads, dt, g, mask_kind)
         kw = dict(causal=causal, scale=scale)
@@ -1546,6 +1573,438 @@ def real_files_path():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- the BIWI speaker family (SpeakerSLMFT, EmocaConverter) at full width ---
+
+BIWI_L, BIWI_N, BIWI_CLIPS, BIWI_B, BIWI_VDIM = 120, 50, 4, 4, 70110
+BIWI_GEN_LAUNCHES = {"decode_attention": 8 * (BIWI_L - 1), "flash_attention_fwd": 0,
+                     "flash_attention_bwd": 0, "nearest_code": 2}
+BIWI_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 4,
+                      "flash_attention_bwd": 4, "nearest_code": 2}
+# half the mesh's vertices, as test_biwi's synthetic mouth map
+BIWI_MOUTH = list(range(BIWI_VDIM // 6))
+
+
+def _speaker_model(seed):
+    """SpeakerSLMFT at full width (slm_defaults + vq_listener_defaults, 70110-d
+    BIWI meshes, 15 speakers), fp32, seeded random weights."""
+    from dyadic_interaction_modeling_tpu_torch.config import (
+        slm_defaults, vq_listener_defaults)
+    from dyadic_interaction_modeling_tpu_torch.models.slm import SpeakerSLMFT
+
+    torch.manual_seed(seed)
+    return SpeakerSLMFT(slm_defaults(), vq_listener_defaults(), vertice_dim=BIWI_VDIM,
+                        n_speakers=15)
+
+
+def _biwi_batch(n_clips, seed):
+    """n_clips synthetic BIWI clips of BIWI_L frames (about 4.8 s at BIWI's 25
+    fps) as one batch on the card: (vertices, EMOCA, audio features, mask,
+    template, speaker ids)."""
+    from dyadic_interaction_modeling_tpu_torch.data.synthetic import (
+        synthetic_biwi_dataset, synthetic_vico_dataset)
+    from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import speaker_ids_from_names
+
+    items, _ = synthetic_biwi_dataset(n_clips=n_clips, length=BIWI_L,
+                                      n_vertices=BIWI_VDIM // 3, seed=seed)
+    emoca = synthetic_vico_dataset(n_clips=n_clips, min_len=BIWI_L, max_len=BIWI_L, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def stack(xs):
+        return torch.stack([torch.as_tensor(x) for x in xs]).to("cuda")
+
+    return (stack([it["vertice"] for it in items]), stack([emoca[i][1] for i in range(n_clips)]),
+            torch.randn(n_clips, BIWI_L, 768, device="cuda", generator=g),
+            torch.ones(n_clips, BIWI_L, dtype=torch.bool, device="cuda"),
+            stack([it["template"] for it in items]),
+            speaker_ids_from_names([it["name"] for it in items], "cuda"))
+
+
+@phase
+def speaker_generate_path():
+    """SpeakerSLMFT best-of-BIWI_N generation at full width, fp32, one clip a
+    call as the reference evaluates (batch 1): ``make_speaker_generator``,
+    then ``select_best_by_l2``, each call with every launch count set to 0
+    just before it and read just after (K1 8 x (L - 1): self and cross in 4
+    decoder layers for L - 1 tokens; K4 twice; no K2/K3). Then one greedy
+    token sequence at B0 = 1, N = BIWI_N teacher-forced through
+    ``decode_step`` with the kernels and with the plain versions (logits
+    within 1e-3), and K1 at the cross step's shape, (12, BIWI_N, 64) over
+    BIWI_L keys with a key mask, against its plain version (fp32 1e-5, bf16
+    2e-2)."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import (
+        make_speaker_generator, select_best_by_l2)
+    from dyadic_interaction_modeling_tpu_torch.kernels.decode import (
+        decode_attention, decode_attention_plain)
+    from dyadic_interaction_modeling_tpu_torch.models.xtrans import init_decoder_cache
+
+    model = _speaker_model(seed=0).to("cuda").eval()
+    gen = make_speaker_generator(model)
+    batch = _biwi_batch(BIWI_CLIPS, seed=21)
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    runs, times = [], []
+    for i in range(BIWI_CLIPS):
+        clip = tuple(x[i: i + 1] for x in batch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cands = gen(clip, rng, BIWI_N)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        runs.append(dict(kernels.LAUNCHES))
+        best = select_best_by_l2(cands[0].cpu().numpy(), clip[1][0, 1:].cpu().numpy())
+        check(tuple(cands.shape) == (1, BIWI_N, BIWI_L - 1, 56)
+              and bool(torch.isfinite(cands).all()) and best.shape == (BIWI_L - 1, 56),
+              f"speaker best-of-{BIWI_N} clip {i}: candidates {tuple(cands.shape)} finite, "
+              f"best by L2 {best.shape}")
+    say(f"launches of each speaker generate call: {runs}")
+    check(all(r == BIWI_GEN_LAUNCHES for r in runs),
+          f"each speaker generate call launches {BIWI_GEN_LAUNCHES} (K1 self and cross at "
+          f"NQ = {BIWI_N} in 4 layers x {BIWI_L - 1} tokens, K4 for the two VQ encodes)")
+    med = statistics.median(times)
+    say(f"speaker best-of-{BIWI_N}, 1 clip x L={BIWI_L}, fp32, {CARD[-1]}: median "
+        f"{med * 1e3:.1f} ms of "
+        f"{[round(t * 1e3, 1) for t in times]} -> {BIWI_N * (BIWI_L - 1) / med:.0f} sampled "
+        "frames/s")
+
+    clip = tuple(x[:1] for x in batch)
+    with torch.no_grad():
+        tokens = gen(clip, None, BIWI_N, greedy=True, return_tokens=True)[1]
+        ctx, prompt = model.encode_context(*clip)
+        dec = model.decoder
+        cross = dec.cross_kv(ctx)
+        seq = torch.cat([prompt.repeat(BIWI_N, 1).to(tokens.dtype), tokens], dim=1)
+        caches = [init_decoder_cache(BIWI_N, BIWI_L, dec.depth, dec.heads, dec.dim_head,
+                                     torch.float32, dec.kv_heads, "cuda") for _ in range(2)]
+        worst = 0.0
+        for t in range(BIWI_L):
+            tok = seq[:, t: t + 1]
+            a = dec.decode_step(tok, caches[0], t, cross, clip[3], BIWI_N)
+            with plain_attention():
+                b = dec.decode_step(tok, caches[1], t, cross, clip[3], BIWI_N)
+            worst = max(worst, float((a - b).abs().max()))
+    check(worst <= 1e-3, f"speaker teacher-forced decode_step fp32 B0=1 N={BIWI_N}, {BIWI_L} "
+          f"steps of the greedy sequence: logits max abs err kernel vs plain {worst:.3g} "
+          "(tol 1e-3)")
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    k1 = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn(HEADS, BIWI_N, 64, device="cuda", generator=g).to(dtype)
+        k, v = (torch.randn(HEADS, BIWI_L, 64, device="cuda", generator=g).to(dtype)
+                for _ in range(2))
+        mask = torch.rand(1, BIWI_L, device="cuda", generator=g) < 0.8
+        mask[:, 0] = True
+        e = float((decode_attention(q, k, v, None, mask, scale=0.125).float()
+                   - decode_attention_plain(q, k, v, None, mask, scale=0.125).float())
+                  .abs().max())
+        tag = str(dtype).replace("torch.", "")
+        check(e <= tol, f"K1 speaker cross {tag} ({HEADS},{BIWI_N},64) over {BIWI_L} keys, "
+              f"key mask: max abs err {e:.3g} (tol {tol})")
+        k1[tag] = e
+    return {"launches": runs[0], "launches_each_call": runs, "generate_ms": med * 1e3,
+            "generate_runs_ms": [t * 1e3 for t in times], "teacher_forced_err": worst,
+            "k1_cross_err": k1}
+
+
+def _stdout_of(main, argv):
+    """``main(argv)``'s exit code and what it printed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    say(buf.getvalue().rstrip())
+    return rc, buf.getvalue()
+
+
+@phase
+def test_biwi_twin():
+    """``cli/test_biwi.main`` with ``--synthetic`` at full width on the card
+    (4 clips of 16 frames, 70110-d meshes, fp32), every launch count set to
+    0 just before and read just after (a clip: K2 4 in the decoder's causal
+    self-attention, K4 2); its gt/pred ``.npy`` files and finite LVE / FDD;
+    then the same run under ``plain_attention()``: every teacher-forced
+    prediction within 1e-4 of the kernels' relative to its largest
+    magnitude."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import test_biwi
+
+    root = tempfile.mkdtemp(prefix="test_biwi_")
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out = _stdout_of(test_biwi.main, ["--synthetic", "--out-dir",
+                                              os.path.join(root, "kernels")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n = test_biwi.SYNTHETIC_CLIPS
+        want = {"decode_attention": 0, "flash_attention_fwd": 4 * n, "flash_attention_bwd": 0,
+                "nearest_code": 2 * n}
+        say(f"test_biwi: exit {rc}, {secs:.1f} s, launches {launches}")
+        check(rc == 0 and launches == want, f"test_biwi ran to its end with launches {want} "
+              "(a clip: K2 in 4 decoder layers, K4 for the two VQ encodes)")
+        lve, fdd = (float(x) for x in out.split("LVE ")[1].split()[::2][:2])
+        check(all(v == v and abs(v) != float("inf") for v in (lve, fdd)),
+              f"test_biwi LVE {lve:.6e} and FDD {fdd:.6e} finite")
+        with plain_attention():
+            _stdout_of(test_biwi.main, ["--synthetic", "--out-dir", os.path.join(root, "plain")])
+        files = sorted(os.listdir(os.path.join(root, "kernels", "pred")))
+        worst = 0.0
+        for f in files:
+            a, b = (np.load(os.path.join(root, d, "pred", f)) for d in ("kernels", "plain"))
+            worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+        gts = [np.load(os.path.join(root, "kernels", "gt", f)) for f in files]
+        check(len(files) == n and all(g.shape == (test_biwi.SYNTHETIC_LEN - 1, 56) for g in gts),
+              f"test_biwi wrote {len(files)} gt and pred files of "
+              f"({test_biwi.SYNTHETIC_LEN - 1}, 56)")
+        check(worst <= 1e-4, f"test_biwi teacher-forced predictions, kernels vs plain: "
+              f"{worst:.3g} of the largest magnitude (tol 1e-4)")
+        return {"launches": launches, "s": secs, "lve": lve, "fdd": fdd, "pred_rel": worst}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _speaker_grads(state, batch, codes, plain, dtype):
+    """One SpeakerSLMFT loss and its trainable leaves' gradients, from
+    ``state`` and the given target ``codes``, with the kernels or the plain
+    versions, in fp32 or fp64 (``fp64_where_fp32``)."""
+    from dyadic_interaction_modeling_tpu_torch.models.slm import SPEAKER_SLMFT_FROZEN
+
+    model = _speaker_model(seed=0)
+    model.load_state_dict(state)
+    model = model.to("cuda", dtype)
+    for k, p in model.named_parameters():
+        p.requires_grad_(not k.startswith(SPEAKER_SLMFT_FROZEN))
+    model._codes = lambda *args: codes
+    inputs = [x.to(dtype) if x.is_floating_point() else x for x in batch]
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_attention())
+        if dtype == torch.float64:
+            stack.enter_context(fp64_where_fp32())
+        out = model(*inputs, mouth_map=BIWI_MOUTH)
+        out.total_loss.backward()
+    logs = {k: float(out.logs[k].detach()) for k in ("l_ce_l", "l_cont_l")}
+    logs["total"] = float(out.total_loss.detach())
+    grads = {k: p.grad.double() for k, p in model.named_parameters() if p.grad is not None}
+    return logs, grads
+
+
+@phase
+def speaker_finetune_path():
+    """One SpeakerSLMFT finetune step at full width: fp32, AdamW (1e-5,
+    weight decay 0.01), clip 1.0, SPEAKER_SLMFT_FROZEN frozen, BIWI_B clips
+    of BIWI_L frames with the mouth MSE logged: 3 warmup steps and 10 steps
+    each between its own pair of CUDA events (K2 4, K3 4, K4 2 a step),
+    frozen tensors bitwise unchanged, then traced as the other steps. Then
+    one fp32 loss with the kernels and with the plain versions from the same
+    weights: equal codes, loss within 1e-5 relative, gradients of the
+    trainable leaves within 1e-3 of each leaf's largest magnitude; a leaf
+    past that is held against the plain versions in fp64 as in 11 (the
+    kernels' error within 1e-3 or 4x the plain fp32 run's)."""
+    from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import make_speaker_train_step
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.models.slm import SPEAKER_SLMFT_FROZEN
+
+    model = _speaker_model(seed=0).to("cuda")
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(model, 1e-5, 0.01, SPEAKER_SLMFT_FROZEN)
+    step = make_speaker_train_step(model, opt, 1.0)
+    batch = _biwi_batch(BIWI_B, seed=23)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    med, times, launches, logs = _timed_steps(step, (batch, BIWI_MOUTH), "speaker finetune",
+                                              BIWI_STEP_LAUNCHES)
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    check(bool(frozen) and all(k.startswith(SPEAKER_SLMFT_FROZEN) for k in frozen)
+          and all(torch.equal(model.get_parameter(k), before[k]) for k in frozen),
+          f"{len(frozen)} frozen speaker tensors bitwise unchanged")
+    moving = [k for k, p in model.named_parameters() if p.requires_grad
+              and k.startswith(("decoder_joint", "speaker_vq.decoder.decoder_transformer"))]
+    still = [k for k in moving if torch.equal(model.get_parameter(k), before[k])]
+    check(not still, f"all {len(moving)} trainable transformer tensors moved "
+          f"(unmoved: {still[:5]})")
+    say(f"SpeakerSLMFT finetune step B={BIWI_B} L={BIWI_L} fp32, {CARD[-1]}, CUDA events: median "
+        f"{med * 1e3:.2f} ms of {[round(t * 1e3, 2) for t in times]} -> "
+        f"{BIWI_B * BIWI_L / med:.0f} frames/s")
+    say(f"logs of the first warmup step {_rounded(logs[0])}; of the last {_rounded(logs[-1])}")
+    windows, top = _trace_steps(step, (batch, BIWI_MOUTH), "speaker finetune")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    codes = []
+    for plain in (False, True):
+        m = _speaker_model(seed=0)
+        m.load_state_dict(state)
+        m = m.to("cuda")
+        with plain_attention() if plain else k4_calls() as calls, torch.no_grad():
+            codes.append(m._codes(batch[0], batch[1], batch[3], batch[4]))
+        if not plain:
+            k4 = k4_on_path(calls, "the speaker finetune step")
+        del m
+    check(torch.equal(*codes), "both runs' EMOCA codes equal")
+    (lk, gk), (lp, gp) = (_speaker_grads(state, batch, codes[0], plain, torch.float32)
+                          for plain in (False, True))
+    rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    check(max(rel.values()) <= 1e-5, f"fp32 speaker finetune loss B={BIWI_B}, kernels vs "
+          f"plain: rel err {max(rel.values()):.3g} (tol 1e-5): {lk}")
+    errs = _grad_errs(gk, gp)
+    worst = max(errs, key=errs.get)
+    hard = [k for k in errs if errs[k] > 1e-3]
+    say(f"gradients of {len(errs)} trainable leaves, kernels vs plain fp32: worst "
+        f"{errs[worst]:.3g} of the leaf's max ({worst}); past 1e-3: {hard[:6]}")
+    fp64 = None
+    if hard:
+        _, g64 = _speaker_grads(state, batch, codes[0], True, torch.float64)
+        ek, ep = _grad_errs(gk, g64), _grad_errs(gp, g64)
+        bad = [k for k in hard if ek[k] > max(1e-3, 4 * ep[k])]
+        fp64 = {k: {"kernels": ek[k], "plain_fp32": ep[k]} for k in hard}
+        check(not bad, f"the {len(hard)} leaves past 1e-3 against fp64: the kernels' error "
+              f"within 1e-3 or 4x the plain fp32 run's (failing: {bad[:5]})")
+    else:
+        check(True, f"gradients of the {len(errs)} trainable leaves within 1e-3 of each "
+              "leaf's max, kernels vs plain fp32")
+    return {"launches": launches, "step_ms": med * 1e3, "step_runs_ms": [t * 1e3 for t in times],
+            "windows": windows, "top": [(n, t / 1e3, c) for n, t, c in top],
+            "loss_rel": max(rel.values()), "grad_rel": errs[worst], "grad_rel_leaf": worst,
+            "fp64": fp64, "k4": k4}
+
+
+@phase
+def converter_path():
+    """``cli/train_converter.main`` at full width on the card: 70110-d meshes,
+    8 synthetic clips of BIWI_L frames, a mouth map, 2 epochs, every launch
+    count set to 0 just before and read just after (K4 once a step: the
+    frozen speaker VQ's encode; its attention at L = 120 takes the matmul
+    route); finite losses that fall, the speaker VQ bitwise unchanged in the
+    best state_dict. Then the step alone: 3 warmup steps and 10 each between
+    its own pair of CUDA events, traced as the other steps."""
+    import shutil
+    import tempfile
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import train_converter as tc
+    from dyadic_interaction_modeling_tpu_torch.config import vq_listener_defaults
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.models.slm import CONVERTER_FROZEN, EmocaConverter
+
+    root = tempfile.mkdtemp(prefix="converter_")
+    try:
+        mouth = os.path.join(root, "lve.txt")
+        with open(mouth, "w") as f:
+            f.write(", ".join(str(i) for i in BIWI_MOUTH))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out = _stdout_of(tc.main, ["--synthetic", "--clip-len", str(BIWI_L),
+                                       "--mouth-map", mouth, "--epochs", "2",
+                                       "--save-path", os.path.join(root, "run")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        want = {"decode_attention": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "nearest_code": 16}
+        say(f"train_converter: exit {rc}, {secs:.1f} s, launches {launches}")
+        check(rc == 0 and launches == want, f"train_converter ran to its end with launches "
+              f"{want} (8 clips x 2 epochs, K4 once a step)")
+        losses = [float(line.split("loss ")[1]) for line in out.splitlines() if "loss " in line]
+        check(len(losses) == 2 and all(x == x and abs(x) != float("inf") for x in losses)
+              and losses[1] < losses[0], f"train_converter epoch losses {losses} finite and "
+              "falling")
+        torch.manual_seed(0)
+        init = EmocaConverter(vq_listener_defaults(), BIWI_VDIM).state_dict()
+        best = torch.load(os.path.join(root, "run", "best_model.pt"), map_location="cpu",
+                          weights_only=True)
+        vq = [k for k in best if k.startswith(CONVERTER_FROZEN)]
+        check(bool(vq) and all(torch.equal(best[k], init[k]) for k in vq),
+              f"the converter's {len(vq)} speaker VQ tensors bitwise unchanged")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.manual_seed(0)
+    model = EmocaConverter(vq_listener_defaults(), BIWI_VDIM).to("cuda")
+    step = tc.make_converter_step(model, make_optimizer(model, 1e-5, 0.01, CONVERTER_FROZEN),
+                                  0.0, BIWI_MOUTH, 5.0)
+    args = tuple(torch.as_tensor(x, device="cuda")
+                 for x in tc.synthetic_batches(BIWI_VDIM, BIWI_L, n_clips=1)[0])
+
+    def logged(*a):
+        return {"loss": step(*a)}
+
+    med, times, steps, _ = _timed_steps(logged, args, "converter", {
+        "decode_attention": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+        "nearest_code": 1})
+    say(f"converter step B=1 L={BIWI_L} fp32, {CARD[-1]}, CUDA events: median "
+        f"{med * 1e3:.2f} ms of {[round(t * 1e3, 2) for t in times]} -> "
+        f"{BIWI_L / med:.0f} frames/s")
+    windows, top = _trace_steps(logged, args, "converter")
+    return {"launches": launches, "s": secs, "losses": losses, "step_ms": med * 1e3,
+            "step_runs_ms": [t * 1e3 for t in times], "step_launches": steps,
+            "windows": windows, "top": [(n, t / 1e3, c) for n, t, c in top]}
+
+
+@phase
+def speaker_timings():
+    """K1 at the speaker generate path's shapes, fp32 (its dtype): the cross
+    step (12, BIWI_N, 64) over BIWI_L keys with the clip's key mask, and the
+    self step (BIWI_N x 12, 1, 64) swept over t = 0 .. BIWI_L - 2 (the mean
+    launch of a call); the kernel, its plain version and SDPA, as in 9."""
+    import torch.nn.functional as F
+
+    from dyadic_interaction_modeling_tpu_torch.kernels.decode import (
+        decode_attention, decode_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    f32 = torch.float32
+    out = {}
+    rows = BIWI_N * HEADS
+    sets = [tuple(torch.randn(rows, n, 64, device="cuda", generator=g) for n in (1, BIWI_L, BIWI_L))
+            for _ in range(4)]
+    steps = BIWI_L - 1
+
+    def sweep(fn):
+        return lambda i=0: [fn(*sets[(i + t) % 4], t) for t in range(steps)]
+
+    kern = sweep(lambda q, k, v, t: decode_attention(q, k, v, t, scale=0.125))
+    plain = sweep(lambda q, k, v, t: decode_attention_plain(q, k, v, t, scale=0.125))
+    sdpa = sweep(lambda q, k, v, t: F.scaled_dot_product_attention(
+        q[:, None], k[:, None, : t + 1], v[:, None, : t + 1], scale=0.125))
+    r = dict(ms=cuda_ms(kern, 7) / steps, plain_ms=cuda_ms(plain, 3) / steps,
+             library_ms=cuda_ms(sdpa, 7) / steps, graph_ms=graph_ms(kern, inner=1) / steps,
+             library_graph_ms=graph_ms(sdpa, inner=1) / steps)
+    nbytes = sum(rows * 64 * 4 * 2 * (t + 1) for t in range(steps)) / steps + 2 * rows * 64 * 4
+    ops = sum(4 * rows * 64 * (t + 1) for t in range(steps)) / steps
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, ops, f32)
+    out["speaker_self"] = r
+    del sets
+    q = torch.randn(HEADS, BIWI_N, 64, device="cuda", generator=g)
+    k, v = (torch.randn(HEADS, BIWI_L, 64, device="cuda", generator=g) for _ in range(2))
+    mask = torch.ones(1, BIWI_L, dtype=torch.bool, device="cuda")
+    m4 = mask.repeat_interleave(HEADS, 0)[:, None, None, :]
+    r = dict(ms=cuda_ms(lambda i: decode_attention(q, k, v, None, mask, scale=0.125), 200),
+             plain_ms=cuda_ms(lambda i: decode_attention_plain(q, k, v, None, mask,
+                                                               scale=0.125), 50),
+             library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+                 q[:, None], k[:, None], v[:, None], attn_mask=m4, scale=0.125), 200),
+             graph_ms=graph_ms(lambda: decode_attention(q, k, v, None, mask, scale=0.125)),
+             library_graph_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                 q[:, None], k[:, None], v[:, None], attn_mask=m4, scale=0.125)))
+    nbytes = HEADS * BIWI_L * 64 * 4 * 2 + 2 * HEADS * BIWI_N * 64 * 4 + BIWI_L
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 4 * HEADS * BIWI_N * BIWI_L * 64, f32)
+    out["speaker_cross"] = r
+    for name, r in out.items():
+        say(f"K1 {name} fp32, {CARD[-1]}: kernel {r['ms'] * 1e3:.2f} us (graph "
+            f"{r['graph_ms'] * 1e3:.2f} "
+            f"us), plain {r['plain_ms'] * 1e3:.2f} us, SDPA {r['library_ms'] * 1e3:.2f} us "
+            f"(graph {r['library_graph_ms'] * 1e3:.2f} us), bound {r['bound_ms'] * 1e3:.2f} "
+            f"us ({r['bound_by']})")
+    return out
+
+
 @phase
 def vq_attention_routes():
     """The VQ attention by both routes, forward and backward, graph-timed
@@ -1691,7 +2150,7 @@ def _flash_entry(name, line, which, tt, k23, by_path):
 
 
 def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k4, k1, k23,
-                 t, tt, routes, refs, ft64, build_s, ptxas):
+                 t, tt, routes, refs, ft64, build_s, ptxas, biwi):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
@@ -1700,7 +2159,12 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
              f"vq_train_{TRAIN_STEPS}_steps": vq["launches"],
              f"finetune_{TRAIN_STEPS}_steps": ft["launches"],
              f"speaker_vq_train_{TRAIN_STEPS}_steps": spk["launches"],
-             **{f"real_files_{name}": r["launches"] for name, r in rf["runs"].items()}}
+             **{f"real_files_{name}": r["launches"] for name, r in rf["runs"].items()},
+             f"speaker_generate_best_of_{BIWI_N}": biwi["generate"]["launches"],
+             "test_biwi": biwi["test_biwi"]["launches"],
+             f"speaker_finetune_{TRAIN_STEPS}_steps": biwi["finetune"]["launches"],
+             "train_converter_2_epochs": biwi["converter"]["launches"],
+             f"converter_{TRAIN_STEPS}_steps": biwi["converter"]["step_launches"]}
 
     def by_path(name, generate=None):
         out = {} if generate is None else generate
@@ -1723,7 +2187,12 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
          "cases": {"self (3000,1,64) L=256 t=0..255 bf16": self_,
                    "cross (300,10,64) L=256 masked bf16": cross,
                    "MQA cross (25,120,64) L=256 masked bf16": t["mqa_cross"],
-                   "max_abs_err": k1}},
+                   f"speaker self ({BIWI_N * HEADS},1,64) t=0..{BIWI_L - 2} fp32":
+                       biwi["k1"]["speaker_self"],
+                   f"speaker cross ({HEADS},{BIWI_N},64) L={BIWI_L} masked fp32":
+                       biwi["k1"]["speaker_cross"],
+                   "max_abs_err": k1, "speaker_cross_max_abs_err":
+                       biwi["generate"]["k1_cross_err"]}},
         _flash_entry("flash_attention_fwd", 111, "fwd", tt, k23,
                      by_path("flash_attention_fwd", {"generate": 0})),
         _flash_entry("flash_attention_bwd", 152, "bwd", tt, k23,
@@ -1757,7 +2226,23 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
         "speaker_vq_train_traced_windows": spk["windows"],
         "speaker_vq_reference": refs["speaker_vq_train"], "real_files": rf,
         "finetune_fp64_reference": ft64, "vq_attention_routes": routes, "build_s": build_s,
-        "ptxas_fp32_attention": ptxas}
+        "ptxas_fp32_attention": ptxas,
+        "speaker_generate_ms": biwi["generate"]["generate_ms"],
+        "speaker_generate_runs_ms": biwi["generate"]["generate_runs_ms"],
+        "speaker_generate_sampled_frames_per_s":
+            BIWI_N * (BIWI_L - 1) / biwi["generate"]["generate_ms"] * 1e3,
+        "test_biwi": biwi["test_biwi"],
+        "speaker_finetune_step_ms": biwi["finetune"]["step_ms"],
+        "speaker_finetune_step_runs_ms": biwi["finetune"]["step_runs_ms"],
+        "speaker_finetune_frames_per_s": BIWI_B * BIWI_L / biwi["finetune"]["step_ms"] * 1e3,
+        "speaker_finetune_busy_share": biwi["finetune"]["windows"]["card"]["busy_share"],
+        "speaker_finetune_traced_windows": biwi["finetune"]["windows"],
+        "speaker_finetune_reference": {k: biwi["finetune"][k] for k in (
+            "loss_rel", "grad_rel", "grad_rel_leaf", "fp64")},
+        "converter_step_ms": biwi["converter"]["step_ms"],
+        "converter_step_runs_ms": biwi["converter"]["step_runs_ms"],
+        "converter_busy_share": biwi["converter"]["windows"]["card"]["busy_share"],
+        "converter_losses": biwi["converter"]["losses"]}
 
 
 def main() -> int:
@@ -1801,16 +2286,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     rf = real_files_path()
     torch.cuda.empty_cache()
+    biwi = {"generate": speaker_generate_path()}
+    torch.cuda.empty_cache()
+    biwi["test_biwi"] = test_biwi_twin()
+    torch.cuda.empty_cache()
+    biwi["finetune"] = speaker_finetune_path()
+    torch.cuda.empty_cache()
+    biwi["converter"] = converter_path()
+    torch.cuda.empty_cache()
+    biwi["k1"] = speaker_timings()
     routes = vq_attention_routes()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_wide, mqa_ref,
                             mqa_wide_ref, train, train_ref, tt, vq, vq_ref, ft, ft_ref,
-                            ft64, spk, spk_ref, rf, routes):
+                            ft64, spk, spk_ref, rf, routes, *biwi.values()):
         say(f"FAILED: {FAILURES}")
         return 1
     refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
-            "speaker_vq_train": spk_ref}
+            "speaker_vq_train": spk_ref, "speaker_finetune": biwi["finetune"]}
     say(json.dumps(kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf,
-                                k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas)))
+                                k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

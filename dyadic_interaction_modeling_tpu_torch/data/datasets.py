@@ -1,4 +1,4 @@
-"""Readers of the reference's ViCo and CANDOR files.
+"""Readers of the reference's ViCo, CANDOR and BIWI files.
 
 A copy of the ViCo and CANDOR readers of
 ``dyadic_interaction_modeling_tpu/data/datasets.py:38-177`` (the reference's
@@ -11,6 +11,11 @@ A copy of the ViCo and CANDOR readers of
 * ``ViCoListenerDataset`` / ``ViCoSpeakerDataset``: one stream of those clips.
 * ``candor_split``: speaker/listener utterance pickles, split 95/5 by
   conversation id with ``random.Random(42)``, 5 <= len <= 250.
+* ``read_biwi_emoca_data`` / ``BiwiEmocaDataset`` (JAX ``:243-364``, the
+  reference's ``dataset/biwi.py:37-166``): a BIWI tree of ``wav/``,
+  ``vertices_npy/``, ``emoca_biwi/*.pkl`` and ``templates.pkl``; a clip that
+  fails to read is skipped; split by subject and sentence, val equal to
+  test (sentences 37-40); audio features interpolated to the vertex frames.
 
 The JAX package reads ``RLD_data.csv`` with pandas; the port declares torch,
 numpy and scipy only, so ``read_csv_rows`` reads it with the ``csv`` module
@@ -24,7 +29,7 @@ import csv
 import os
 import pickle
 import random
-from typing import Any, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -196,3 +201,139 @@ class CandorListenerDataset:
 
 class CandorSpeakerDataset(CandorListenerDataset):
     pass
+
+
+def _interp_to_length(array: np.ndarray, new_t: int) -> np.ndarray:
+    """torch ``F.interpolate(mode='linear', align_corners=True)`` over time
+    (biwi.py:37-43)."""
+    t = array.shape[0]
+    if t == new_t:
+        return np.asarray(array, np.float32)
+    pos = np.linspace(0.0, t - 1.0, new_t)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, t - 1)
+    w = (pos - lo)[:, None]
+    return (array[lo] * (1 - w) + array[hi] * w).astype(np.float32)
+
+
+def load_wav_16k(path: str) -> np.ndarray:
+    """A 16 kHz mono waveform: soundfile when installed, else the standard
+    library's ``wave`` (16-bit PCM); other rates resampled linearly."""
+    try:
+        import soundfile as sf
+
+        data, sr = sf.read(path, dtype="float32")
+        if data.ndim > 1:
+            data = data.mean(axis=1)
+    except ImportError:
+        import wave
+
+        with wave.open(path, "rb") as w:
+            sr = w.getframerate()
+            raw = w.readframes(w.getnframes())
+            data = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+            if w.getnchannels() > 1:
+                data = data.reshape(-1, w.getnchannels()).mean(axis=1)
+    if sr != 16000:
+        n_out = int(len(data) * 16000 / sr)
+        data = np.interp(np.linspace(0, len(data) - 1, n_out),
+                         np.arange(len(data)), data).astype(np.float32)
+    return data
+
+
+class BiwiEmocaDataset:
+    """BIWI speaker items (biwi.py:45-66): (audio features interpolated to
+    the vertex-frame count, vertices, template, EMOCA, name), or without
+    ``read_audio`` the last four."""
+
+    def __init__(self, items: Sequence[Dict], data_type: str = "train",
+                 read_audio: bool = True):
+        self.items = list(items)
+        self.data_type = data_type
+        self.read_audio = read_audio
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index: int):
+        d = self.items[index]
+        vertice = np.asarray(d["vertice"], np.float32)
+        template = np.asarray(d["template"], np.float32)
+        emoca = np.asarray(d["emoca"], np.float32)
+        if self.read_audio:
+            audio = _interp_to_length(np.asarray(d["audio"]), vertice.shape[0])
+            return audio, vertice, template, emoca, d["name"]
+        return vertice, template, emoca, d["name"]
+
+
+# the speaker reader's sentence splits: val == test == 37-40 (biwi.py:151-152)
+BIWI_EMOCA_SPLITS = {
+    "vocaset": {"train": range(1, 41), "val": range(21, 41), "test": range(21, 41)},
+    "BIWI": {"train": range(1, 33), "val": range(37, 41), "test": range(37, 41)},
+}
+BIWI_EMOCA_TRAIN_SUBJECTS = "F2 F3 F4 M3 M4 M5"
+BIWI_EMOCA_TEST_SUBJECTS = "F1 F5 F6 F7 F8 M1 M2 M6"
+
+
+def read_biwi_emoca_data(data_root: str, hubert_extractor=None, *,
+                         wav_path: str = "wav", vertices_path: str = "vertices_npy",
+                         template_file: str = "templates.pkl",
+                         emoca_dir: str = "emoca_biwi", dataset: str = "BIWI",
+                         train_subjects: str = BIWI_EMOCA_TRAIN_SUBJECTS,
+                         val_subjects: str = BIWI_EMOCA_TRAIN_SUBJECTS,
+                         test_subjects: str = BIWI_EMOCA_TEST_SUBJECTS):
+    """A BIWI tree -> (train, val, test, subjects) item lists for
+    ``BiwiEmocaDataset`` (biwi.py:69-166).
+
+    Per wav clip with its vertices: the 16 kHz waveform through
+    ``hubert_extractor`` (any callable; None reads no audio, as
+    ``read_audio=False``), the subject's template, the vertices (every
+    second frame for vocaset), and the EMOCA pose + exp of each frame in
+    sorted frame order. A clip whose files fail to read is skipped."""
+    audio_dir = os.path.join(data_root, wav_path)
+    vert_dir = os.path.join(data_root, vertices_path)
+    emoca_root = os.path.join(data_root, emoca_dir)
+    templates = _load_pickle_latin1(os.path.join(data_root, template_file))
+    data: Dict[str, Dict] = {}
+    for r, _, fs in os.walk(audio_dir):
+        for fname in sorted(fs):
+            if not fname.endswith("wav"):
+                continue
+            try:
+                key = fname.replace("wav", "npy")
+                vert_path = os.path.join(vert_dir, key)
+                if not os.path.exists(vert_path):
+                    continue
+                audio = None
+                if hubert_extractor is not None:
+                    audio = np.asarray(hubert_extractor(
+                        load_wav_16k(os.path.join(r, fname))), np.float32)
+                subject_id = "_".join(key.split("_")[:-1])
+                vertice = np.load(vert_path, allow_pickle=True)
+                if dataset == "vocaset":
+                    vertice = vertice[::2, :]
+                emoca_data = _load_pickle(os.path.join(emoca_root,
+                                                       fname.split(".")[0] + ".pkl"))
+                emoca = np.array([np.concatenate([emoca_data[f]["pose"], emoca_data[f]["exp"]])
+                                  for f in sorted(emoca_data.keys())])
+                data[key] = {"name": fname, "audio": audio,
+                             "template": np.asarray(templates[subject_id]).reshape(-1),
+                             "vertice": vertice, "emoca": emoca}
+            except Exception:  # noqa: BLE001 - the reference skips a corrupt clip
+                continue
+    subjects = {"train": train_subjects.split(" "), "val": val_subjects.split(" "),
+                "test": test_subjects.split(" ")}
+    splits = BIWI_EMOCA_SPLITS[dataset]
+    out = {"train": [], "val": [], "test": []}
+    for k, v in data.items():
+        subject_id = "_".join(k.split("_")[:-1])
+        sentence_id = int(k.split(".")[0][-2:])
+        for part in ("train", "val", "test"):
+            if subject_id in subjects[part] and sentence_id in splits[part]:
+                out[part].append(v)
+    return out["train"], out["val"], out["test"], subjects
+
+
+def _load_pickle_latin1(path: str):
+    with open(path, "rb") as f:
+        return pickle.load(f, encoding="latin1")

@@ -9,7 +9,12 @@ speaker file, listener id, speaker id, split; integer ids), the layout
 ``dataset/data_loader.py:108-152``). ``write_candor`` lays out
 ``<root>/candor_processed/{speaker,listener}/<conversation>_<n>.pkl`` (dicts
 of ``video`` and, for the speaker, ``audio``), which ``candor_split`` reads.
-The motion is ``data.synthetic``'s: sums of random sinusoids per channel.
+``write_biwi`` lays out a BIWI tree as ``data.datasets.read_biwi_emoca_data``
+reads it (the reference's ``dataset/biwi.py:70-76``): ``wav/<stem>.wav``
+(16 kHz, 16-bit PCM), ``vertices_npy/<stem>.npy``,
+``emoca_biwi/<stem>.pkl`` (a dict of frames, each ``pose`` (6) and ``exp``
+(50)) and ``templates.pkl``. The motion is ``data.synthetic``'s: sums of
+random sinusoids per channel.
 """
 
 from __future__ import annotations
@@ -17,11 +22,12 @@ from __future__ import annotations
 import csv
 import os
 import pickle
-from typing import Sequence, Tuple
+import wave
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .synthetic import synthetic_vico_clip
+from .synthetic import _smooth_motion, synthetic_vico_clip
 
 SENTIMENTS = ("neutral", "positive", "negative")
 
@@ -70,3 +76,44 @@ def write_candor(root: str, n_conversations: int, utterances: int, min_len: int,
                                                  "audio": clip["audio"]})
             _dump(os.path.join(li_root, name), {"video": clip["video_listener"]})
     return sp_root, li_root
+
+
+def _write_wav(path: str, pcm: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.astype(np.int16).tobytes())
+
+
+def write_biwi(root: str, clips: Sequence[Tuple[str, int]], n_frames: int,
+               n_vertices: int, wav_samples: int = 8000, seed: int = 0,
+               corrupt_clip: Optional[Tuple[str, int]] = None) -> Dict[str, np.ndarray]:
+    """One clip per (subject, sentence) of ``clips``, stem
+    ``{subject}_{sentence:02d}``, of ``n_frames`` vertex and EMOCA frames
+    and ``wav_samples`` audio samples; ``corrupt_clip``'s EMOCA file is not a
+    pickle. Returns the subjects' (n_vertices, 3) templates."""
+    rng = np.random.default_rng(seed)
+    templates: Dict[str, np.ndarray] = {}
+    for subj, sent in clips:
+        stem = f"{subj}_{sent:02d}"
+        if subj not in templates:
+            templates[subj] = rng.standard_normal((n_vertices, 3)).astype(np.float32)
+        _write_wav(os.path.join(root, "wav", f"{stem}.wav"),
+                   rng.standard_normal(wav_samples) * 3000)
+        verts = templates[subj].reshape(1, -1) + _smooth_motion(rng, n_frames, 3 * n_vertices)
+        path = os.path.join(root, "vertices_npy", f"{stem}.npy")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, verts.astype(np.float32))
+        motion = _smooth_motion(rng, n_frames, 56)
+        emoca = {f"{t:06d}": {"pose": motion[t, :6], "exp": motion[t, 6:]}
+                 for t in range(n_frames)}
+        if (subj, sent) == corrupt_clip:
+            os.makedirs(os.path.join(root, "emoca_biwi"), exist_ok=True)
+            with open(os.path.join(root, "emoca_biwi", f"{stem}.pkl"), "wb") as f:
+                f.write(b"not a pickle")
+        else:
+            _dump(os.path.join(root, "emoca_biwi", f"{stem}.pkl"), emoca)
+    _dump(os.path.join(root, "templates.pkl"), templates)
+    return templates

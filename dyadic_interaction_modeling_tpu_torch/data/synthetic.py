@@ -1,6 +1,7 @@
 """Synthetic ViCo-shaped clips, so the pipeline runs without the licensed data.
 
-A copy of ``synthetic_vico_dataset`` and ``synthetic_candor_dataset`` from
+A copy of ``synthetic_vico_dataset``, ``synthetic_candor_dataset`` and
+``synthetic_biwi_dataset`` from
 ``dyadic_interaction_modeling_tpu/data/synthetic.py``: smooth band-limited
 motion (sums of random sinusoids per channel) plus Gaussian audio features,
 the same numbers for the same seed.
@@ -8,7 +9,7 @@ the same numbers for the same seed.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -73,3 +74,24 @@ def synthetic_candor_dataset(n_clips: int = 16, min_len: int = 24, max_len: int 
         combined = np.concatenate([clip["video_speaker"], clip["audio"]], axis=1)
         items.append((combined, clip["video_listener"], f"candor_{i}", 0, 0, 0))
     return ListDataset(items)
+
+
+def synthetic_biwi_dataset(n_clips: int = 4, length: int = 32, n_vertices: int = 23370,
+                           seed: int = 0, subjects=("F2", "F3")) -> Tuple[List[Dict], Dict]:
+    """BIWI-layout items (name ``{subject}_{i:02d}.wav``, template, vertices
+    (length, 3 * n_vertices) of smooth motion about the template, raw audio
+    of length * 533 samples) and the subjects' templates."""
+    rng = np.random.default_rng(seed)
+    templates = {s: rng.standard_normal(n_vertices * 3).astype(np.float32) * 0.01
+                 for s in subjects}
+    items = []
+    for i in range(n_clips):
+        s = subjects[i % len(subjects)]
+        motion = _smooth_motion(rng, length, n_vertices * 3, n_waves=2, scale=0.002)
+        items.append({
+            "name": f"{s}_{i + 1:02d}.wav",
+            "template": templates[s],
+            "vertice": motion + templates[s][None, :],
+            "audio": rng.standard_normal(length * 533).astype(np.float32),
+        })
+    return items, templates

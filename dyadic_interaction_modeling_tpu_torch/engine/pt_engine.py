@@ -14,7 +14,11 @@ Counterpart of ``dyadic_interaction_modeling_tpu/engine/pt_engine.py``:
 * ``make_slmft_generator`` (:195-318) runs the N resamples of every clip as
   ONE batched generate whose N*B0 rows share the B0 clips' cross-attention
   context (``context_groups``), then decodes the tokens to motion; the
-  per-clip pick by Frechet distance happens on the host.
+  per-clip pick by Frechet distance happens on the host;
+* ``make_speaker_generator`` (:236-269) does the same for SpeakerSLMFT's
+  BIWI speaker generation (EMOCA candidates, picked by vertex L2), with
+  ``BIWI_SPEAKER_IDS`` and ``speaker_ids_from_names`` (:36-41, :321);
+  ``make_speaker_train_step`` is its teacher-forced finetune step.
 """
 
 from __future__ import annotations
@@ -34,6 +38,13 @@ from ..models.xtrans import IGNORE, generate_tokens
 from .train_state import clip_by_global_norm
 
 log = logging.getLogger(__name__)
+
+# BIWI subject -> speaker-embedding row (x_engine_pt.py:99-102)
+BIWI_SPEAKER_IDS = {
+    "F2": 0, "F3": 1, "F4": 2, "M3": 3, "M4": 4, "M5": 5,
+    "F1": 6, "F5": 7, "F6": 8, "F7": 9, "F8": 10, "M1": 11,
+    "M2": 12, "M6": 13,
+}
 
 
 def _autocast(device: torch.device, amp_dtype: Optional[torch.dtype]):
@@ -210,6 +221,64 @@ def make_slmft_generator(model: SLMFT) -> Callable:
         return (cands, tokens) if return_tokens else cands
 
     return generate
+
+
+def make_speaker_generator(model) -> Callable:
+    """Batched generator for SpeakerSLMFT: (batch, generator, n_samples) ->
+    (B, N, L-1, 56) candidate EMOCA sequences, batch = (verts, emoca,
+    audio, mask, template, speaker_ids) tensors on the model's device
+    (``speaker_ids`` may be None).
+
+    As ``make_slmft_generator``: one ``generate_tokens`` call whose N*B rows
+    (sample-major) share the B clips' context (``context_groups=N``), the
+    tokens decoded by the speaker VQ. ``greedy``, ``gumbel`` and
+    ``return_tokens`` as there. The JAX package's ``chunk`` (a
+    chunked-prefix schedule over the self cache) has no counterpart: K1
+    reads only the live t + 1 cache entries of step t."""
+
+    @torch.no_grad()
+    def generate(batch, generator: Optional[torch.Generator], n_samples: int, *,
+                 greedy: bool = False, gumbel: Optional[torch.Tensor] = None,
+                 return_tokens: bool = False):
+        verts, emoca, audio, mask, template, sids = batch
+        b, l = verts.shape[0], verts.shape[1]
+        ctx, prompt = model.encode_context(verts, emoca, audio, mask, template, sids)
+        tokens = generate_tokens(model.decoder, prompt.repeat(n_samples, 1), l - 1, ctx,
+                                 mask, generator, greedy=greedy,
+                                 context_groups=n_samples, gumbel=gumbel)
+        out = model.decode_emoca(tokens, from_logits=False)[1]
+        cands = out.reshape(n_samples, b, l - 1, -1).transpose(0, 1)
+        return (cands, tokens) if return_tokens else cands
+
+    return generate
+
+
+def make_speaker_train_step(model, optimizer: torch.optim.Optimizer,
+                            clip_norm: float) -> Callable:
+    """(batch, mouth_map=None) -> logs: one optimizer step of SpeakerSLMFT's
+    teacher-forced loss in the parameters' dtype, batch = (verts, emoca,
+    audio, mask, template, speaker_ids) tensors on the model's device;
+    clipping as ``make_slm_train_step``. A trainable parameter that the
+    loss does not reach (the mesh head, ``W``) keeps ``grad`` None, so AdamW
+    leaves it alone, weight decay included, as in the reference."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(batch, mouth_map=None) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad(set_to_none=True)
+        out = model(*batch, mouth_map=mouth_map)
+        out.total_loss.backward()
+        if clip_norm > 0:
+            clip_by_global_norm(params, clip_norm)
+        optimizer.step()
+        return {k: v.detach() for k, v in out.logs.items()}
+
+    return step
+
+
+def speaker_ids_from_names(names: Iterable[str], device=None) -> torch.Tensor:
+    """BIWI file names (``F2_01.wav``) -> int64 speaker-embedding rows."""
+    return torch.tensor([BIWI_SPEAKER_IDS[n.split("_")[0]] for n in names],
+                        dtype=torch.int64, device=device)
 
 
 def select_best_by_fd(candidates: np.ndarray, target: np.ndarray) -> np.ndarray:

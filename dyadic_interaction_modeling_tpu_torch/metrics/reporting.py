@@ -3,12 +3,13 @@
 A copy of ``print_metrics`` and ``print_metrics_full`` from
 ``dyadic_interaction_modeling_tpu/metrics/reporting.py``: FD, paired FD, MSE,
 SID, variance, residual PCC and STS over the pose (0:6) and expression (6:56)
-splits. Returns the values and prints them in the reference's format.
+splits, and ``print_biwi_metrics`` (LVE and FDD of BIWI meshes). Returns the
+values and prints them in the reference's format.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 
@@ -111,3 +112,34 @@ def print_metrics_full(y_true, y_pred, x, verbose: bool = True) -> Dict[str, flo
         print("mse: ", out["mse"])
         print("var: ", out["var_gt"], out["var"])
     return out
+
+
+def print_biwi_metrics(y_true: Sequence[np.ndarray], y_pred: Sequence[np.ndarray],
+                       file_names: Sequence[str], templates: Mapping[str, np.ndarray],
+                       mouth_map: Sequence[int], upper_map: Sequence[int],
+                       n_vertices: int = 23370, verbose: bool = True) -> Dict[str, float]:
+    """BIWI lip vertex error and upper-face dynamics deviation
+    (mymetrics.py:122-182). ``templates``: subject id -> (V * 3,) template;
+    ``mouth_map`` / ``upper_map``: the lve.txt / fdd.txt vertex lists."""
+    mouth_map, upper_map = np.asarray(mouth_map), np.asarray(upper_map)
+    gts, preds, std_diff = [], [], []
+
+    def motion_std(motion):
+        l2 = np.sum(np.square(motion[:, upper_map, :]), axis=2)  # (T, |upper|)
+        return float(np.mean(np.std(l2, axis=0)))
+
+    for yt, yp, name in zip(y_true, y_pred, file_names):
+        v_gt = yt.reshape(-1, n_vertices, 3)
+        v_pred = yp.reshape(-1, n_vertices, 3)[: v_gt.shape[0]]
+        tmpl = np.asarray(templates[name.split("_")[0]]).reshape(1, n_vertices, 3)
+        gts.append(v_gt)
+        preds.append(v_pred)
+        std_diff.append(motion_std(v_gt - tmpl) - motion_std(v_pred - tmpl))
+    v_gt, v_pred = np.concatenate(gts, axis=0), np.concatenate(preds, axis=0)
+    l2_mouth = np.sum(np.square(v_gt[:, mouth_map, :] - v_pred[:, mouth_map, :]), axis=2)
+    lve = float(np.mean(np.max(l2_mouth, axis=1)))
+    fdd = float(np.mean(std_diff))
+    if verbose:
+        print("Lip Vertex Error: {:.4e}".format(lve))
+        print("FDD: {:.4e}".format(fdd))
+    return {"lve": lve, "fdd": fdd}

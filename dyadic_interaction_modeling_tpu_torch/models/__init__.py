@@ -13,10 +13,12 @@ def get_model(cfg) -> nn.Module:
     JAX package, the reference's ``models/__init__.get_model``)."""
     if cfg.arch == "stage1_BIWI":
         return VQAutoEncoder(cfg)
+    if cfg.arch == "stage1_vocaset":
+        return VQAutoEncoder(cfg, variant="vocaset")
     if cfg.arch in ("stage1_speaker_BIWI", "stage1_BIWI_speaker"):
         return VQSpeakerAutoEncoder(cfg)
-    if cfg.arch in ("stage1_vocaset", "stage2"):
+    if cfg.arch == "stage2":
         raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP.md, queue 1: the rest of "
-            "the VQ family; the speaker and speech path)")
+            "arch 'stage2' (CodeTalker) is not ported yet (ROADMAP.md, queue 1 item 4: "
+            "the speaker and speech path)")
     raise ValueError(f"unknown arch: {cfg.arch}")

@@ -1,19 +1,27 @@
-"""The SLM family: dyadic pretraining (SLM) and listener generation (SLMFT).
+"""The SLM family: dyadic pretraining (SLM), listener generation (SLMFT),
+BIWI speaker generation (SpeakerSLMFT) and the EMOCA-to-mesh converter.
 
-Counterpart of ``dyadic_interaction_modeling_tpu/models/slm.py:57-358``
-(seq2seq_pretrain.py:72-514): the frozen VQ tokenizers, the continuous
-encoders, the cross-predicting token decoder and the training losses: SLM's
-pretraining and SLMFT's listener finetune. Each module holds exactly the parameters of the JAX package's tree,
-under the reference state_dict keys, so weights move between the two with
-``load_state_dict(strict=True)``. Shared by both (``_SLMBase``): the speaker
-and listener VQs, ``encoder_s``, ``encoder_joint``, the four patch
-embeddings, ``norm_s`` and ``decoder_joint``. The encoders have no
-``project_out`` (they only return embeddings). SLM adds:
+Counterpart of ``dyadic_interaction_modeling_tpu/models/slm.py:57-583``
+(seq2seq_pretrain.py:72-842): the frozen VQ tokenizers, the continuous
+encoders, the cross-predicting token decoder, the mesh heads and the
+training losses. Each module holds exactly the parameters of the JAX
+package's tree (flax creates only what a forward touches), under the
+reference state_dict keys, so weights move between the two with
+``load_state_dict(strict=True)``. Shared by all three token models
+(``_SLMBase``): the speaker and listener VQs' encoders and codebooks, the
+four patch embeddings and ``decoder_joint``. The encoders have no
+``project_out`` (they only return embeddings). The parts each model adds:
 
-* ``encoder_l``, ``norm_l`` and ``norm``;
-* the speaker VQ's decoder (SLMFT never decodes speaker codes);
-* the decoder's positional embedding (SLMFT's has none,
-  seq2seq_pretrain.py:386).
+* SLM: ``encoder_s``, ``encoder_l``, ``encoder_joint``, ``norm_s``,
+  ``norm_l``, ``norm``, both VQ decoders, the decoder's positional
+  embedding;
+* SLMFT: ``encoder_s``, ``encoder_joint``, ``norm_s``, the listener VQ's
+  decoder; no decoder positions (seq2seq_pretrain.py:386);
+* SpeakerSLMFT: no encoder, the speaker VQ's decoder, the decoder's
+  positions, the converter front-end, one BiLSTM mesh head, the speaker
+  embedding and the unused ``W``. A reference file also holds the
+  encoders, norms, the listener VQ's decoder and a second mesh head, which
+  no forward touches (``SPEAKER_SLMFT_REFERENCE_ONLY``).
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import torch
 from torch import nn
 
 from ..metrics.loss import pairwise_distance_loss
+from ..ops.convseq import ConvSquasher
+from ..ops.rnn import LSTM
 from .vq_vae import VQAutoEncoder
 from .xtrans import (
     IGNORE,
@@ -44,6 +54,22 @@ SLMFT_FROZEN = ("speaker_vq", "listener_vq")
 # when a pretrained SLM is grafted into SLMFT (``utils.checkpoint.partial_load``)
 SLM_ONLY = ("encoder_l.", "norm_l.", "norm.", "speaker_vq.decoder.",
             "decoder_joint.net.pos_emb.")
+# SpeakerSLMFT's (seq2seq_pretrain.py:540-573): the listener VQ, the speaker
+# VQ's quantizer and encoder, the converter front-end; the speaker VQ's
+# decoder, the decoder, the mesh head and the speaker embedding train
+SPEAKER_SLMFT_FROZEN = ("listener_vq", "speaker_vq.quantize", "speaker_vq.encoder",
+                        "vertice_mapping", "squasher")
+# EmocaConverter's (seq2seq_pretrain.py:777-779): the speaker VQ whole
+CONVERTER_FROZEN = ("speaker_vq",)
+# what a reference SpeakerSLMFT / EmocaConverter file holds that no forward
+# touches, so neither the JAX package's tree nor the port's module has it;
+# dropped by name on load (the JAX importer drops them by its template,
+# utils/torch_import.py:306-375)
+SPEAKER_SLMFT_REFERENCE_ONLY = (
+    "encoder_s.", "encoder_l.", "encoder_joint.", "norm_s.", "norm_l.", "norm.",
+    "listener_vq.decoder.", "vertice_map_reverse_lstm_2.", "vertice_map_reverse2.")
+CONVERTER_REFERENCE_ONLY = ("vertice_mapping.", "squasher.",
+                            "vertice_map_reverse_lstm_2.", "vertice_map_reverse2.")
 # the fraction of decoder inputs the finetune corrupts (the
 # AutoregressiveWrapper's mask_prob, seq2seq_pretrain.py:386)
 AR_MASK_PROB = 0.15
@@ -109,10 +135,16 @@ class _ARWrapper(nn.Module):
 
 
 class _SLMBase(nn.Module):
-    """The stack both models share (seq2seq_pretrain.py:116-165);
-    ``pretrain`` adds SLM's parts (module docstring)."""
+    """The stack the models share (seq2seq_pretrain.py:116-165), holding
+    only the parts a model's forward touches (module docstring):
+    ``encoders`` (those of ``encoder_s``, ``encoder_l``, ``encoder_joint``),
+    ``norms`` (of ``norm_s``, ``norm_l``, ``norm``), the VQ decoders
+    (``speaker_decoder``, ``listener_decoder``) and the decoder's absolute
+    positions (``dec_pos_emb``)."""
 
-    def __init__(self, cfg, vq_cfg, pretrain: bool):
+    def __init__(self, cfg, vq_cfg, *, encoders: Tuple[str, ...] = (),
+                 norms: Tuple[str, ...] = (), speaker_decoder: bool = False,
+                 listener_decoder: bool = False, dec_pos_emb: bool = False):
         super().__init__()
         if cfg.num_tokens != vq_cfg.n_embed:
             raise ValueError(f"decoder vocab ({cfg.num_tokens}) must equal the VQ "
@@ -120,27 +152,24 @@ class _SLMBase(nn.Module):
         self.cfg, self.vq_cfg = cfg, vq_cfg
         dh = cfg.get("attn_dim_head", 64)
         kvh = cfg.get("attn_kv_heads", 0) or None
-        self.speaker_vq = VQAutoEncoder(vq_cfg, with_decoder=pretrain)
-        self.listener_vq = VQAutoEncoder(vq_cfg)
+        self.speaker_vq = VQAutoEncoder(vq_cfg, with_decoder=speaker_decoder)
+        self.listener_vq = VQAutoEncoder(vq_cfg, with_decoder=listener_decoder)
         enc = dict(dim=cfg.dim, max_seq_len=cfg.enc_max_seq_len,
                    depth=cfg.enc_depth, heads=cfg.enc_heads, dim_head=dh,
                    kv_heads=kvh)
-        self.encoder_s = ContinuousTransformerWrapper(cfg.dim_in, **enc)
-        if pretrain:
-            self.encoder_l = ContinuousTransformerWrapper(cfg.dim_in, **enc)
-        self.encoder_joint = ContinuousTransformerWrapper(cfg.dim, **enc)
+        for name in encoders:
+            dim_in = cfg.dim if name == "encoder_joint" else cfg.dim_in
+            setattr(self, name, ContinuousTransformerWrapper(dim_in, **enc))
         self.patch_embed_s = nn.Parameter(torch.zeros(1, 1, cfg.dim_in))
         self.patch_embed_l = nn.Parameter(torch.zeros(1, 1, cfg.dim_in))
         self.patch_embed_dec_s = nn.Parameter(torch.zeros(1, 1, cfg.dim))
         self.patch_embed_dec_l = nn.Parameter(torch.zeros(1, 1, cfg.dim))
-        self.norm_s = nn.LayerNorm(cfg.dim, eps=1e-6)  # flax's default eps
-        if pretrain:
-            self.norm_l = nn.LayerNorm(cfg.dim, eps=1e-6)
-            self.norm = nn.LayerNorm(cfg.dim, eps=1e-6)
+        for name in norms:
+            setattr(self, name, nn.LayerNorm(cfg.dim, eps=1e-6))  # flax's default eps
         self.decoder_joint = _ARWrapper(TokenDecoder(
             num_tokens=cfg.num_tokens, dim=cfg.dim + cfg.dim_audio,
             max_seq_len=cfg.dec_max_seq_len, depth=cfg.dec_depth,
-            heads=cfg.dec_heads, dim_head=dh, use_abs_pos_emb=pretrain,
+            heads=cfg.dec_heads, dim_head=dh, use_abs_pos_emb=dec_pos_emb,
             kv_heads=kvh))
 
     @property
@@ -174,7 +203,9 @@ class SLM(_SLMBase):
     """Dyadic masked pretraining model (seq2seq_pretrain.py:72-323)."""
 
     def __init__(self, cfg, vq_cfg):
-        super().__init__(cfg, vq_cfg, pretrain=True)
+        super().__init__(cfg, vq_cfg, encoders=("encoder_s", "encoder_l", "encoder_joint"),
+                         norms=("norm_s", "norm_l", "norm"), speaker_decoder=True,
+                         listener_decoder=True, dec_pos_emb=True)
 
     def forward_encoder(self, v_speaker, v_listener, valid_mask, noise_s, noise_l):
         """Mask 15% of each stream's valid frames, encode both streams, then
@@ -260,7 +291,8 @@ class SLMFT(_SLMBase):
     teacher-forced finetune (``forward``) and the generation side."""
 
     def __init__(self, cfg, vq_cfg):
-        super().__init__(cfg, vq_cfg, pretrain=False)
+        super().__init__(cfg, vq_cfg, encoders=("encoder_s", "encoder_joint"),
+                         norms=("norm_s",), listener_decoder=True)
 
     def forward_encoder(self, v_speaker: torch.Tensor,
                         valid_mask: torch.Tensor) -> torch.Tensor:
@@ -333,3 +365,135 @@ class SLMFT(_SLMBase):
     def decode_tokens_to_motion(self, tokens: torch.Tensor,
                                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.listener_vq.decode_indices(tokens, lengths)
+
+
+class MeshHead(nn.Sequential):
+    """Linear(768, 768) -> LeakyReLU(0.2) -> Linear(768, vertice_dim)
+    (seq2seq_pretrain.py:815-819), keyed ``.0`` and ``.2``."""
+
+    def __init__(self, vertice_dim: int):
+        super().__init__(nn.Linear(768, 768), nn.LeakyReLU(0.2),
+                         nn.Linear(768, vertice_dim))
+
+
+def _mesh_heads(module: nn.Module, emoca_dim: int, vertice_dim: int) -> None:
+    """The 2-layer BiLSTM(384) and the mesh head that turn EMOCA into a mesh
+    (the reference's ``vertice_map_reverse_lstm`` / ``vertice_map_reverse``;
+    its second pair is never used)."""
+    module.vertice_map_reverse_lstm = LSTM(emoca_dim, 384, num_layers=2, bidirectional=True)
+    module.vertice_map_reverse = MeshHead(vertice_dim)
+
+
+class SpeakerSLMFT(_SLMBase):
+    """BIWI speaker finetune and generation (seq2seq_pretrain.py:516-757).
+
+    Inputs: raw BIWI vertices (``vertice_dim``, 70110 = 23370 x 3), EMOCA
+    coefficients (56), audio features (768) and the subject's template. The
+    frozen converter front-end maps the vertices to 56-d; the decoder
+    predicts EMOCA codes autoregressively, conditioned on the speaker
+    embedding and the audio, and the BiLSTM mesh head turns decoded EMOCA
+    into a mesh.
+
+    Reproduced reference quirks: ``forward_vq`` tokenizes the converted
+    vertices with ``speaker_vq`` and the EMOCA with ``listener_vq``, the
+    targets are the listener VQ's codes, and they are decoded with
+    ``speaker_vq``; the total loss is CE + EMOCA MSE, while the mouth MSE is
+    only logged (``l_cont_s``)."""
+
+    def __init__(self, cfg, vq_cfg, vertice_dim: int = 70110, n_speakers: int = 15):
+        super().__init__(cfg, vq_cfg, speaker_decoder=True, dec_pos_emb=True)
+        self.vertice_mapping = nn.Sequential(nn.Linear(vertice_dim, cfg.dim_in),
+                                             nn.LeakyReLU(0.2))
+        self.squasher = ConvSquasher(cfg.dim_in, cfg.dim_in, 0, neg=0.2, affine=False)
+        _mesh_heads(self, vq_cfg.in_dim, vertice_dim)
+        self.speaker_embed = nn.Embedding(n_speakers, cfg.dim)
+        self.W = nn.Parameter(torch.randn(2))
+
+    def convert_front(self, verts: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+        """(B, L, vertice_dim) vertices less the (B, vertice_dim) template ->
+        (B, L, dim_in) through the converter's front-end."""
+        v = (verts - template[:, None, :]).to(self.dtype)
+        return self.squasher(self.vertice_mapping(v))
+
+    def mesh_head(self, emoca: torch.Tensor) -> torch.Tensor:
+        """(B, L, 56) EMOCA -> (B, L, vertice_dim) mesh offsets."""
+        return self.vertice_map_reverse(self.vertice_map_reverse_lstm(emoca))
+
+    def decode_emoca(self, tokens_or_logits: torch.Tensor, from_logits: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Codes (or logits, through their argmax) -> (mesh offsets, EMOCA),
+        decoded by the speaker VQ."""
+        pred = tokens_or_logits.argmax(dim=-1) if from_logits else tokens_or_logits
+        emoca = self.speaker_vq.decode_indices(pred)
+        return self.mesh_head(emoca), emoca
+
+    def _context(self, v_audio: torch.Tensor,
+                 speaker_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        """The decoder's context: the speaker embedding (zeros without ids)
+        plus ``patch_embed_dec_l``, beside the audio features."""
+        b, l = v_audio.shape[0], v_audio.shape[1]
+        if speaker_ids is None:
+            x_l = torch.zeros(b, l, self.cfg.dim, dtype=self.dtype, device=v_audio.device)
+        else:
+            x_l = self.speaker_embed(speaker_ids.long())[:, None, :].expand(b, l, -1)
+        return torch.cat([x_l + self.patch_embed_dec_l, v_audio.to(x_l.dtype)], dim=-1)
+
+    def _codes(self, verts, emoca, valid_mask, template) -> torch.Tensor:
+        """The listener VQ's EMOCA codes, the targets (no gradient)."""
+        with torch.no_grad():
+            return self.forward_vq(self.convert_front(verts, template), emoca, valid_mask)[1]
+
+    def forward(self, v_speaker_verts: torch.Tensor, v_speaker_emoca: torch.Tensor,
+                v_audio: torch.Tensor, valid_mask: torch.Tensor, template: torch.Tensor,
+                speaker_ids: Optional[torch.Tensor] = None, mouth_map=None) -> SLMOutputs:
+        """The teacher-forced finetune: CE + EMOCA MSE, SLM's six logs (the
+        mouth MSE of the mesh under ``mouth_map`` as ``l_cont_s``, 0 without
+        one) and the decoded (B, L-1, 56) EMOCA."""
+        z = self._codes(v_speaker_verts, v_speaker_emoca, valid_mask, template)
+        inp, tgt = ar_inputs_targets(z)
+        logits = self.decoder(inp, context=self._context(v_audio, speaker_ids),
+                              context_mask=valid_mask)
+        l_ce = ar_cross_entropy(logits, tgt)
+        emoca = self.speaker_vq.decode_indices(logits.argmax(dim=-1))
+        l_emoca = (emoca - v_speaker_emoca[:, 1:].to(emoca.dtype)).square().mean()
+        zero = torch.zeros((), device=valid_mask.device)
+        l_mouth = zero
+        if mouth_map is not None:
+            mesh = self.mesh_head(emoca) + template[:, None, :]
+            b, n = mesh.shape[0], mesh.shape[1]
+            pred = mesh.reshape(b, n, -1, 3)[:, :, mouth_map]
+            gt = v_speaker_verts[:, 1:].reshape(b, n, -1, 3)[:, :, mouth_map]
+            l_mouth = (pred - gt.to(pred.dtype)).square().mean()
+        logs = {"l_ce_s": zero, "l_ce_l": l_ce, "l_cont_s": l_mouth, "l_cont_l": l_emoca,
+                "nce": zero, "c_acc": zero}
+        return SLMOutputs(l_ce + l_emoca, logs, emoca)
+
+    def encode_context(self, v_speaker_verts, v_speaker_emoca, v_audio, valid_mask,
+                       template, speaker_ids=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(decoder context (B, L, dim + dim_audio), prompt (B, 1)): the
+        prompt is the first target code with the -100 pad clamped to 0."""
+        z = self.forward_vq(self.convert_front(v_speaker_verts, template),
+                            v_speaker_emoca, valid_mask)[1]
+        return self._context(v_audio, speaker_ids), torch.clamp(z[:, :1], min=0)
+
+    def tokenize_emoca_frames(self, v_emoca: torch.Tensor) -> torch.Tensor:
+        """EMOCA frames -> the speaker VQ's codes, clamped at 0 (a prompt from
+        the first frames of a stream)."""
+        return torch.clamp(self.speaker_vq.encode_indices(v_emoca.to(self.dtype)), min=0)
+
+
+class EmocaConverter(nn.Module):
+    """EMOCA-56 -> BIWI mesh regressor (seq2seq_pretrain.py:759-842): the
+    frozen speaker VQ's round trip, then the 2-layer BiLSTM(384) and the mesh
+    head, plus the template. ``cfg`` is the speaker VQ's."""
+
+    def __init__(self, cfg, vertice_dim: int = 70110, emoca_dim: int = 56):
+        super().__init__()
+        self.speaker_vq = VQAutoEncoder(cfg)
+        _mesh_heads(self, emoca_dim, vertice_dim)
+
+    def forward(self, template: torch.Tensor, v_speaker: torch.Tensor) -> torch.Tensor:
+        """(B, vertice_dim) template, (B, L, 56) EMOCA -> (B, L, vertice_dim)."""
+        dec = self.speaker_vq(v_speaker)[0]
+        out = self.vertice_map_reverse(self.vertice_map_reverse_lstm(dec))
+        return out + template[:, None, :]

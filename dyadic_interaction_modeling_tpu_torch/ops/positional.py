@@ -1,11 +1,16 @@
-"""Sinusoidal positional encoding of the VQ-VAEs (base_models.py:258-273).
+"""Positional encodings and attention-bias masks.
 
-Counterpart of ``dyadic_interaction_modeling_tpu/ops/positional.py:26-74``.
+Counterpart of ``dyadic_interaction_modeling_tpu/ops/positional.py:26-157``:
+the VQ-VAEs' sinusoidal ``PositionalEncoding`` (base_models.py:258-273), the
+learned ``PositionEmbedding`` (base_models.py:248-256), FaceFormer's
+``PeriodicPositionalEncoding``, ALiBi-biased causal mask and
+``enc_dec_mask`` (models/utils.py:8-58).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,3 +56,74 @@ class PositionalEncoding(nn.Module):
         if mode == "batch":
             return x + pe[: x.shape[0], None, :]
         raise ValueError(f"unknown positional mode {mode!r}")
+
+
+class PositionEmbedding(nn.Module):
+    """Learned position embedding, zero-initialised, added to every row:
+    (seq_length, dim) ``pos_embedding``."""
+
+    def __init__(self, seq_length: int, dim: int):
+        super().__init__()
+        self.pos_embedding = nn.Parameter(torch.zeros(seq_length, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pos_embedding.to(x.dtype)
+
+
+class PeriodicPositionalEncoding(nn.Module):
+    """A sin/cos table of ``period`` rows tiled past ``max_seq_len``; the
+    ``pe`` buffer has the reference's (1, period * repeats, d_model) shape.
+    Dropout applies in training mode only."""
+
+    def __init__(self, d_model: int, period: int = 25, max_seq_len: int = 600,
+                 dropout: float = 0.1):
+        super().__init__()
+        repeat = max_seq_len // period + 1
+        self.register_buffer("pe", sinusoid_table(period, d_model).repeat(repeat, 1)[None])
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dropout(x + self.pe[:, : x.shape[1]].to(x.dtype))
+
+
+def _alibi_slopes(n_head: int) -> np.ndarray:
+    """FaceFormer's ALiBi head slopes (models/utils.py:9-18)."""
+
+    def power_of_2(n):
+        start = 2 ** (-(2 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_head).is_integer():
+        return np.asarray(power_of_2(n_head))
+    closest = 2 ** math.floor(math.log2(n_head))
+    extra = _alibi_slopes(2 * closest)[0::2][: n_head - closest]
+    return np.asarray(power_of_2(closest) + list(extra))
+
+
+def init_biased_mask(n_head: int, max_seq_len: int, period: int,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    """(n_head, max_seq_len, max_seq_len) fp32: -inf above the diagonal,
+    ``-slope_h * floor((i - j) / period)`` at i >= j (models/utils.py:8-29)."""
+    slopes = _alibi_slopes(n_head)
+    i = np.arange(max_seq_len)[:, None]
+    j = np.arange(max_seq_len)[None, :]
+    alibi = -np.floor((i - j) / period) * (i >= j)
+    causal = np.where(j > i, -np.inf, 0.0)
+    out = slopes[:, None, None] * alibi[None] + causal[None]
+    return torch.as_tensor(out, dtype=torch.float32, device=device)
+
+
+def enc_dec_mask(dataset: str, T: int, S: int,
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """Bool (T, S) alignment mask of the decoder's attention over audio,
+    True = masked (models/utils.py:32-40): BIWI motion frame i sees audio
+    frames 2i and 2i + 1, vocaset frame i audio frame i."""
+    i = np.arange(T)[:, None]
+    j = np.arange(S)[None, :]
+    if dataset == "BIWI":
+        allowed = (j == 2 * i) | (j == 2 * i + 1)
+    elif dataset == "vocaset":
+        allowed = j == i
+    else:
+        raise ValueError(f"unknown dataset for enc_dec_mask: {dataset}")
+    return torch.as_tensor(~allowed, device=device)

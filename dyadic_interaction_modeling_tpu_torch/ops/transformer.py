@@ -6,6 +6,13 @@ Module keys follow the reference: ``net.{2j}.fn.norm`` / ``net.{2j}.fn.fn``
 (Residual(Norm(MLP))); the JAX package's ``TransformerBlock`` is the pair
 ``net.{2j}``, ``net.{2j+1}``.
 
+``CrossModalAttention`` (queries from one stream, keys and values from the
+other), the cross-modal ``Transformer`` (``cross_modal=True``: the query
+stream ``context`` is fixed across layers and only the K/V stream is normed
+and updated, base_models.py:17-20, :34-36), ``AudioEmbedding`` and
+``CrossModalLayer`` (FACT's) always take the dense ``attend``, as in the JAX
+package, where only ``Attention`` reaches the flash kernel.
+
 Reproduced reference quirks:
 
 * the attention scale is ``hidden_size ** -0.5``, the full width, not the
@@ -100,6 +107,29 @@ class Attention(nn.Module):
         return merge_heads(out.reshape(b, h, n, d))
 
 
+class CrossModalAttention(nn.Module):
+    """Q from modality a, K/V from modality b (base_models.py:62-107): a
+    fused unbiased ``to_kv`` on b, an unbiased ``to_q`` on a, a biased
+    ``to_out``, the full-width scale."""
+
+    def __init__(self, dim: int, heads: int = 8):
+        super().__init__()
+        self.heads = heads
+        self.scale = dim ** -0.5
+        self.to_kv = nn.Linear(dim, dim * 2, bias=False)
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_out = nn.Linear(dim, dim)
+
+    def forward(self, x_a: torch.Tensor, x_b: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mask: (Lq, Lk) or (B, Lq, Lk), True = keep."""
+        k, v = (split_heads(t, self.heads) for t in self.to_kv(x_b).chunk(2, dim=-1))
+        q = split_heads(self.to_q(x_a), self.heads)
+        if mask is not None:
+            mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
+        return self.to_out(merge_heads(attend(q, k, v, self.scale, mask)))
+
+
 class MLP(nn.Module):
     """Linear -> tanh-GELU -> Linear."""
 
@@ -124,6 +154,14 @@ class _PreNorm(nn.Module):
         return self.fn(self.norm(x), *args)
 
 
+class _CrossPreNorm(_PreNorm):
+    """Norm of the K/V stream, then ``fn(context, normed, mask)``: the
+    query stream is not normed (base_models.py:17-20)."""
+
+    def forward(self, x, mask=None, context=None):
+        return self.fn(context, self.norm(x), mask)
+
+
 class _Residual(nn.Module):
     """x + fn(x) (base_models.py:26-40)."""
 
@@ -137,22 +175,30 @@ class _Residual(nn.Module):
 
 class Transformer(nn.Module):
     """Stack of pre-norm (attention, MLP) pairs, no final norm
-    (base_models.py:149-199)."""
+    (base_models.py:149-199). With ``cross_modal`` each attention is a
+    ``CrossModalAttention`` whose queries come from the fixed ``context``
+    (reference ``x_a``) and whose keys and values come from the stream being
+    updated (the JAX package's ``TransformerBlock(cross_modal=True)``)."""
 
     def __init__(self, hidden_size: int, num_hidden_layers: int,
-                 num_attention_heads: int, intermediate_size: int):
+                 num_attention_heads: int, intermediate_size: int,
+                 cross_modal: bool = False):
         super().__init__()
+        self.cross_modal = cross_modal
         self.net = nn.ModuleList()
         for _ in range(num_hidden_layers):
-            self.net.append(_Residual(_PreNorm(
-                hidden_size, Attention(hidden_size, num_attention_heads))))
+            attn = (_CrossPreNorm(hidden_size, CrossModalAttention(hidden_size,
+                                                                   num_attention_heads))
+                    if cross_modal else
+                    _PreNorm(hidden_size, Attention(hidden_size, num_attention_heads)))
+            self.net.append(_Residual(attn))
             self.net.append(_Residual(_PreNorm(
                 hidden_size, MLP(hidden_size, intermediate_size))))
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         for attn, mlp in zip(self.net[0::2], self.net[1::2]):
-            x = mlp(attn(x, mask))
+            x = mlp(attn(x, mask, context) if self.cross_modal else attn(x, mask))
         return x
 
 
@@ -165,3 +211,51 @@ class LinearEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
+
+
+class AudioEmbedding(nn.Module):
+    """Audio max-pool squasher and projection (base_models.py:213-246,
+    'v6'): (B, C, L) -> MaxPool(4), then max(quant_factor, 1) MaxPool(2)
+    over time, then ``proj`` C -> dim; returns (B, dim, L')."""
+
+    def __init__(self, size: int, dim: int, quant_factor: int):
+        super().__init__()
+        self.quant_factor = quant_factor
+        self.proj = nn.Linear(size, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from .convseq import max_pool_time
+
+        h = max_pool_time(x.transpose(1, 2), 4)
+        for _ in range(max(self.quant_factor, 1)):
+            h = max_pool_time(h, 2)
+        return self.proj(h).transpose(1, 2)
+
+
+class CrossModalLayer(nn.Module):
+    """FACT's cross-modal layer (base_models.py:276-328): the two streams
+    concatenated over time, a learned (zero-initialised) position embedding,
+    a ``Transformer``, LayerNorm (eps 1e-5) and an unbiased output
+    projection."""
+
+    def __init__(self, in_dim: int, out_dim: int, sequence_length: int,
+                 num_hidden_layers: int = 2, num_attention_heads: int = 8,
+                 intermediate_size: int = 256):
+        super().__init__()
+        self.pos_embedding = nn.Parameter(torch.zeros(sequence_length, in_dim))
+        self.transformer_layer = Transformer(in_dim, num_hidden_layers,
+                                             num_attention_heads, intermediate_size)
+        self.cross_norm_layer = nn.LayerNorm(in_dim, eps=1e-5)
+        self.cross_output_layer = nn.Linear(in_dim, out_dim, bias=False)
+
+    def forward(self, modal_a: torch.Tensor, modal_b: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        merged = modal_a
+        if modal_b is not None:
+            if modal_a.shape[-1] != modal_b.shape[-1]:
+                raise ValueError("modal_a and modal_b hidden sizes must match "
+                                 "(base_models.py:317-320)")
+            merged = torch.cat([modal_a, modal_b], dim=1)
+        merged = merged + self.pos_embedding[: merged.shape[1]].to(merged.dtype)[None]
+        merged = self.transformer_layer(merged, mask)
+        return self.cross_output_layer(self.cross_norm_layer(merged))

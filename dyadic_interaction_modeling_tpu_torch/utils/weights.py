@@ -2,7 +2,8 @@
 
 Adapted from ``dyadic_interaction_modeling_tpu/utils/torch_export.py``
 (``flax_vq_to_torch`` :140, ``flax_vq_speaker_to_torch`` :163,
-``flax_slm_to_torch`` :260). The inputs are the
+``flax_slm_to_torch`` :260, with its SpeakerSLMFT and EmocaConverter heads
+:236-299). The inputs are the
 flax trees as nested mappings of numpy arrays; no JAX is imported.
 
 Layout notes:
@@ -14,8 +15,8 @@ Layout notes:
   ``gamma`` (param) + ``beta`` (zero buffer); positional tables are stored
   times ``dim ** 0.5`` because the forward applies ``dim ** -0.5``.
 * Leaves absent from the flax tree (a never-used ``project_out``, SLMFT's
-  speaker-VQ decoder and decoder ``pos_emb``) are absent from the port's
-  modules too.
+  speaker-VQ decoder and decoder ``pos_emb``, SpeakerSLMFT's encoders,
+  norms and second mesh head) are absent from the port's modules too.
 """
 
 from __future__ import annotations
@@ -43,30 +44,43 @@ def _layernorm(sd, prefix, node):
     sd[f"{prefix}.bias"] = _np(node["bias"])
 
 
-def _conv1d(sd, prefix, node):
-    # flax (k, in, out) -> torch Conv1d (out, in, k)
-    sd[f"{prefix}.weight"] = _np(node["kernel"]).transpose(2, 1, 0)
-    sd[f"{prefix}.bias"] = _np(node["bias"])
-
-
 def _ref_transformer(sd, prefix, node, num_layers):
+    """``ops.transformer.Transformer``; a cross-modal block's attention has
+    ``to_q`` and ``to_kv`` where a self-attention block has ``to_qkv``."""
     for j in range(num_layers):
         a, m = 2 * j, 2 * j + 1
         blk = node[f"block_{j}"]
         _layernorm(sd, f"{prefix}.net.{a}.fn.norm", blk["norm_attn"])
-        _dense(sd, f"{prefix}.net.{a}.fn.fn.to_qkv", blk["attn"]["to_qkv"], bias=False)
+        for nm in ("to_qkv", "to_q", "to_kv"):
+            if nm in blk["attn"]:
+                _dense(sd, f"{prefix}.net.{a}.fn.fn.{nm}", blk["attn"][nm], bias=False)
         _dense(sd, f"{prefix}.net.{a}.fn.fn.to_out", blk["attn"]["to_out"])
         _layernorm(sd, f"{prefix}.net.{m}.fn.norm", blk["norm_mlp"])
         _dense(sd, f"{prefix}.net.{m}.fn.fn.l1", blk["mlp"]["l1"])
         _dense(sd, f"{prefix}.net.{m}.fn.fn.l2", blk["mlp"]["l2"])
 
 
-def _conv_block(sd, prefix, node, affine):
-    blk = node["block_0"]
-    _conv1d(sd, f"{prefix}.0.0", blk)
+def _conv_in(sd, prefix, node, affine, kernel="kernel", bias="bias", transpose=False):
+    """One conv block: its (transposed) conv at ``prefix.0``, its affine
+    instance norm at ``prefix.2``."""
+    # flax (k, in, out) -> torch Conv1d (out, in, k) / ConvTranspose1d (in, out, k)
+    sd[f"{prefix}.0.weight"] = _np(node[kernel]).transpose((1, 2, 0) if transpose
+                                                          else (2, 1, 0))
+    sd[f"{prefix}.0.bias"] = _np(node[bias])
     if affine:
-        sd[f"{prefix}.0.2.weight"] = _np(blk["in_scale"])
-        sd[f"{prefix}.0.2.bias"] = _np(blk["in_bias"])
+        sd[f"{prefix}.2.weight"] = _np(node["in_scale"])
+        sd[f"{prefix}.2.bias"] = _np(node["in_bias"])
+
+
+def _conv_blocks(sd, prefix, node, affine):
+    """A squasher's or expander's blocks: ``block_i`` at ``prefix.i``, and
+    a quant_factor > 0 expander's transposed conv (``tconv_*`` with the
+    node's own instance norm) at ``prefix.0`` (torch_export.py:73-96)."""
+    if "tconv_kernel" in node:
+        _conv_in(sd, f"{prefix}.0", node, affine, "tconv_kernel", "tconv_bias", transpose=True)
+    for name, blk in node.items():
+        if name.startswith("block_"):
+            _conv_in(sd, f"{prefix}.{name[len('block_'):]}", blk, affine)
 
 
 def _pe_buffer(d_model: int, max_len: int = 5000) -> np.ndarray:
@@ -74,35 +88,35 @@ def _pe_buffer(d_model: int, max_len: int = 5000) -> np.ndarray:
     return sinusoid_table(max_len, d_model).numpy()[:, None, :]
 
 
-def _check_qf(cfg):
-    if cfg.quant_factor != 0:
-        raise NotImplementedError("the torch port implements quant_factor == 0 only")
-
-
 def _vq(sd, p, cfg, prefix="", decoders=("decoder",)):
-    _check_qf(cfg)
+    """A VQ-VAE's parts the tree holds. The variant and the expander's depth
+    follow the tree: the vocaset variant has no ``*_post`` / ``*_pre``
+    embeddings and a biased output projection."""
     if "encoder" in p:
         e, pre = p["encoder"], f"{prefix}encoder"
         _dense(sd, f"{pre}.vertice_mapping.0", e["vertice_mapping"])
-        _conv_block(sd, f"{pre}.squasher", e["squasher"], cfg.INaffine)
+        _conv_blocks(sd, f"{pre}.squasher", e["squasher"], cfg.INaffine)
         _dense(sd, f"{pre}.encoder_linear_embedding.net",
                e["encoder_linear_embedding"]["net"])
         sd[f"{pre}.encoder_pos_embedding.pe"] = _pe_buffer(cfg.hidden_size)
         _ref_transformer(sd, f"{pre}.encoder_transformer", e["encoder_transformer"],
                          cfg.num_hidden_layers)
-        _dense(sd, f"{pre}.encoder_linear_embedding_post.net",
-               e["encoder_linear_embedding_post"]["net"])
+        if "encoder_linear_embedding_post" in e:
+            _dense(sd, f"{pre}.encoder_linear_embedding_post.net",
+                   e["encoder_linear_embedding_post"]["net"])
     for name in (n for n in decoders if n in p):
         d, pre = p[name], f"{prefix}{name}"
-        _dense(sd, f"{pre}.decoder_linear_embedding_pre.net",
-               d["decoder_linear_embedding_pre"]["net"])
-        _conv_block(sd, f"{pre}.expander", d["expander"], cfg.INaffine)
+        if "decoder_linear_embedding_pre" in d:
+            _dense(sd, f"{pre}.decoder_linear_embedding_pre.net",
+                   d["decoder_linear_embedding_pre"]["net"])
+        _conv_blocks(sd, f"{pre}.expander", d["expander"], cfg.INaffine)
         _dense(sd, f"{pre}.decoder_linear_embedding.net",
                d["decoder_linear_embedding"]["net"])
         sd[f"{pre}.decoder_pos_embedding.pe"] = _pe_buffer(cfg.hidden_size)
         _ref_transformer(sd, f"{pre}.decoder_transformer", d["decoder_transformer"],
                          cfg.num_hidden_layers)
-        _dense(sd, f"{pre}.vertice_map_reverse", d["vertice_map_reverse"], bias=False)
+        _dense(sd, f"{pre}.vertice_map_reverse", d["vertice_map_reverse"],
+               bias="bias" in d["vertice_map_reverse"])
     if "quantize" in p:
         sd[f"{prefix}quantize.embedding.weight"] = _np(p["quantize"]["embedding"])
 
@@ -166,8 +180,9 @@ def _to_torch(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def jax_vq_to_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
-    """``models.vq_vae.VQAutoEncoder`` (BIWI) params -> the port's
-    ``VQAutoEncoder`` state_dict (fp32 tensors)."""
+    """``models.vq_vae.VQAutoEncoder`` params, either variant and any
+    ``quant_factor`` -> the port's ``VQAutoEncoder`` state_dict (fp32
+    tensors)."""
     sd: Dict[str, np.ndarray] = {}
     _vq(sd, _unwrap(params), cfg)
     return _to_torch(sd)
@@ -204,4 +219,40 @@ def jax_slm_to_state_dict(params, slm_cfg, vq_cfg) -> Dict[str, torch.Tensor]:
     if "decoder_joint" in p:
         _xt_token_decoder(sd, "decoder_joint.net", p["decoder_joint"],
                           slm_cfg.dec_depth, slm_cfg.dim + slm_cfg.dim_audio)
+    return _to_torch(sd)
+
+
+def _converter_heads(sd, p):
+    """The EmocaConverter heads a tree holds (torch_export.py:241-257): the
+    vertices front-end, the BiLSTM (torch's own names) and the mesh head."""
+    if "vertice_mapping" in p:
+        _dense(sd, "vertice_mapping.0", p["vertice_mapping"])
+    if "squasher" in p:
+        _conv_in(sd, "squasher.0", p["squasher"]["block_0"], affine=False)
+    for k, v in p.get("vertice_map_reverse_lstm", {}).items():
+        sd[f"vertice_map_reverse_lstm.{k}"] = _np(v)
+    if "vertice_map_reverse" in p:
+        _dense(sd, "vertice_map_reverse.0", p["vertice_map_reverse"]["l1"])
+        _dense(sd, "vertice_map_reverse.2", p["vertice_map_reverse"]["l2"])
+
+
+def jax_speaker_slmft_to_state_dict(params, slm_cfg, vq_cfg) -> Dict[str, torch.Tensor]:
+    """``models.slm.SpeakerSLMFT`` params -> the port's ``SpeakerSLMFT``
+    state_dict: the SLM stack's parts the tree holds, the converter
+    front-end, the mesh head, ``speaker_embed`` and ``W``."""
+    p = _unwrap(params)
+    sd = {k: v.numpy() for k, v in jax_slm_to_state_dict(p, slm_cfg, vq_cfg).items()}
+    _converter_heads(sd, p)
+    sd["speaker_embed.weight"] = _np(p["speaker_embed"]["embedding"])
+    sd["W"] = _np(p["W"])
+    return _to_torch(sd)
+
+
+def jax_converter_to_state_dict(params, vq_cfg) -> Dict[str, torch.Tensor]:
+    """``models.slm.EmocaConverter`` params -> the port's ``EmocaConverter``
+    state_dict: the speaker VQ and the heads."""
+    p = _unwrap(params)
+    sd: Dict[str, np.ndarray] = {}
+    _vq(sd, p["speaker_vq"], vq_cfg, prefix="speaker_vq.")
+    _converter_heads(sd, p)
     return _to_torch(sd)

@@ -27,6 +27,7 @@ def cuda():
     (250, 12, 256, 64, 200, False), # MQA self: G = 12 query rows
     (25, 120, 256, 64, None, True), # MQA cross, best-of-10: NQ = G * N = 120
     (6, 256, 64, 64, 40, True),     # NQ at its limit
+    (12, 50, 120, 64, None, True),  # speaker best-of-50 cross: NQ = 50 over 120 keys
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, tol, rows, nq, l, d, t, masked):
     from dyadic_interaction_modeling_tpu_torch.kernels.decode import (
@@ -131,6 +132,7 @@ def test_nearest_code_kernel_orders_nan_as_the_plain_version(cuda):
     (6, 1024, 48, False, False),  # D = 48 at a VQ training clip's length, no mask
     (8, 130, 96, False, True),    # D = 96 (the speaker VQ's heads), tail tile, key mask
     (8, 1024, 96, False, False),  # D = 96 at the speaker VQ's training shape
+    (48, 119, 64, True, False),   # SpeakerSLMFT's teacher-forced decoder, causal tail tile
 ])
 def test_flash_attention_kernels_match_plain(cuda, dtype, tol, rows, l, d, causal, masked):
     """K2 (o, lse) and K3 (dq, dk, dv) against their plain versions; errors
