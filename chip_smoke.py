@@ -5,7 +5,10 @@ against its plain PyTorch version, drive SLMFT best-of-10 listener generation
 speaker VQ-VAE tokenizers' training steps and the SLMFT finetune step at full
 width, then the four CLI twins on files in the reference's layout, then the
 BIWI speaker family (SpeakerSLMFT best-of-50 generation, the test_biwi twin,
-its finetune step, the converter's training twin), and time it all.
+its finetune step, the converter's training twin), then the seq2seq
+ListenerGenerator path (its training step, the test_s2s loop, the
+train_s2s / test_s2s twins on files) and the streaming serving sessions
+(listener session, session pool, speaker session), and time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -136,7 +139,39 @@ line):
     K4 once a step), then its step timed and traced (``converter_path``);
 18. K1 at the speaker path's fp32 shapes timed as in 9
     (``speaker_timings``);
-19. the VQ attention at D = 48 and 96 by both routes (``attend`` and
+19. the ListenerGenerator training step at full width
+    (``listener_generator_defaults()``: dim 512, 6 + 6 layers, 8 heads of 64,
+    512 codes; two ``vq_listener_defaults()`` VQs), fp32, 4 synthetic ViCo
+    clips of L = 256 with ids, AdamW (1e-5, weight decay 0.01, no clip),
+    ``LG_FROZEN``: steps timed and traced as in 11, with 12 K2, 12 K3 (6
+    encoder layers at (32, 257, 64) with the key mask, 6 causal decoder
+    layers at (32, 256, 64)) and 2 K4 a step; then one fp32 step at ragged
+    lengths (128-256) against the plain versions, as in 11
+    (``s2s_train_path``, ``s2s_train_reference``; the step's two fp32 shapes
+    are in 5 and 9);
+20. the ``test_s2s`` loop on that model, 4 clips of 256, 255 codes (K1
+    3060, K2 6, K4 2 a batch), timed; its fp32 teacher-forced decode steps
+    against the plain versions (logits within 1e-3); then
+    ``cli.train_s2s.main`` (and ``--continuous``) and ``cli.test_s2s.main``
+    (from a reference-layout ``.pt`` of the first) on ViCo files
+    (``s2s_generate_path``);
+21. ``StreamingListenerSession`` on SLMFT at full width, batch 4, chunk 8,
+    max_frames 256: one feed, ``start`` (K4 once), 31 rounds of 8 frames
+    and 8 codes (K1 8 a code), bf16, the round latency (host clock,
+    synchronized) and codes/s; in fp32 the fed context rows against
+    ``decoder_context`` (1e-4), teacher-forced ``stream_decode_step``
+    logits against the plain versions (1e-3), and where greedy streaming
+    first departs from offline ``generate_tokens`` (``streaming_path``);
+22. ``StreamingSessionPool`` at capacity 8: staggered joins, a leave and a
+    reused slot, bf16 rounds at full occupancy timed (codes/s), K1 n x 8
+    launches a ``generate`` of n codes at 3 and 8 slots; in fp32 each slot's
+    logits against a solo session's (1e-4) and their greedy agreement
+    (``pool_path``);
+23. ``StreamingSpeakerSession`` at the BIWI width, fp32: fed a whole clip,
+    against ``make_speaker_generator`` greedy (the first divergence), its
+    ``mesh`` against the offline decode of the same codes (1e-4)
+    (``speaker_streaming_path``);
+24. the VQ attention at D = 48 and 96 by both routes (``attend`` and
     K2/K3), forward and backward, graph-timed at L = 256, 512, 768 and 1024
     in fp32 and bf16; then the ``kernels`` JSON line and, last, the device
     JSON line.
@@ -501,6 +536,8 @@ K23_CASES = (
     ("finetune decoder (48,255,64) causal+mask", 48, 255, 64, HEADS, "random", True, 0.125,
      0),
     ("speaker decoder (48,119,64) causal", 48, 119, 64, HEADS, None, True, 0.125, 0),
+    ("s2s encoder (32,257,64) masked", 32, 257, 64, 8, "prefix", False, 0.125, 0),
+    ("s2s decoder (32,256,64) causal", 32, 256, 64, 8, None, True, 0.125, 0),
     ("speaker VQ train (8,1024,96)", 8, 1024, 96, 8, None, False, SPK_SCALE, 0),
     ("speaker VQ B=4 (32,512,96) masked", 32, 512, 96, 8, "prefix", False, SPK_SCALE, 0),
 )
@@ -508,10 +545,10 @@ DEAD_CASE = 1  # index of the case with one fully masked batch entry, run twice 
 # the cases with one fully masked batch entry (zero output and gradients)
 DEAD_CASES = (DEAD_CASE, len(K23_CASES) - 1)
 # the cases also timed in fp32: the VQ-VAEs' (D = 48 and 96; VQ training's
-# dtype) and SpeakerSLMFT's teacher-forced decoder (fp32 in test_biwi and its
-# finetune step)
+# dtype), SpeakerSLMFT's teacher-forced decoder (fp32 in test_biwi and its
+# finetune step) and the ListenerGenerator step's two (fp32, the JAX CLI's)
 FP32_CASES = tuple(i for i, c in enumerate(K23_CASES)
-                   if c[3] in (48, 96) or c[0].startswith("speaker decoder"))
+                   if c[3] in (48, 96) or c[0].startswith(("speaker decoder", "s2s ")))
 SOURCES = {torch.float32: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention.cu",
            torch.bfloat16: "dyadic_interaction_modeling_tpu_torch/csrc/flash_attention_mma.cu"}
 
@@ -2005,6 +2042,594 @@ def speaker_timings():
     return out
 
 
+# --- the seq2seq listener path (ListenerGenerator) and the streaming sessions ---
+
+S2S_B, S2S_STEP_LAUNCHES = 4, {"decode_attention": 0, "flash_attention_fwd": 12,
+                               "flash_attention_bwd": 12, "nearest_code": 2}
+# a test_s2s batch: K1 for the self and the cross step of 6 decoder layers a
+# code, K2 in the 6 encoder layers (no attn_mask), K4 for the two VQ encodes
+S2S_GEN_LAUNCHES = {"decode_attention": (L - 1) * 6 * 2, "flash_attention_fwd": 6,
+                    "flash_attention_bwd": 0, "nearest_code": 2}
+S2S_RF_TRAIN, S2S_RF_TEST = 8, 4
+
+
+def _lg_model(seed, with_ids=True):
+    """ListenerGenerator at full width (listener_generator_defaults: dim 512,
+    6 + 6 layers, 8 heads of 64, 512 codes, enc_max_seq_len 1024; both VQs
+    vq_listener_defaults), fp32, seeded random weights."""
+    from dyadic_interaction_modeling_tpu_torch.config import (
+        lg_vq_cfg, listener_generator_defaults)
+    from dyadic_interaction_modeling_tpu_torch.models.listener_generator import (
+        ListenerGenerator)
+
+    cfg = listener_generator_defaults()
+    vq = lg_vq_cfg(cfg)
+    torch.manual_seed(seed)
+    return ListenerGenerator(cfg, vq, vq, with_ids=with_ids)
+
+
+def _lg_batch(seed, lens=None, moving_speaker=False):
+    """S2S_B clips of L frames as (src_v, tgt, mask, speaker ids, listener
+    ids) on the card: synthetic ViCo clips (their speaker motion constant,
+    as ViCo's reader makes it) with their ids, or with ``moving_speaker``
+    CANDOR-shaped ones (see ``_finetune_batch`` on why a gradient check
+    takes those) with ids 0-3; ``lens`` gives the key mask."""
+    if moving_speaker:
+        src_v, tgt, _, mask = _candor(S2S_B, seed)
+        ids = torch.arange(S2S_B, device="cuda")
+        sp, li = ids, ids.flip(0)
+    else:
+        src_v, tgt, _, mask, names = _clips(S2S_B, seed)[0]
+        src_v, tgt, mask = (torch.as_tensor(x, device="cuda") for x in (src_v, tgt, mask))
+        n = torch.arange(S2S_B, device="cuda")
+        sp, li = n % 7, n % 5  # the synthetic set's ids
+    if lens is not None:
+        mask = torch.arange(L, device="cuda")[None, :] < torch.tensor(lens, device="cuda")[:, None]
+    return src_v, tgt, mask, sp, li
+
+
+@phase
+def s2s_train_path():
+    """The ListenerGenerator training step at full width, fp32 (the JAX
+    CLI's dtype), S2S_B synthetic ViCo clips of L = 256 with ids, AdamW 1e-5,
+    weight decay 0.01, no clip, ``LG_FROZEN``: steps timed and traced as the
+    other steps, with 12 K2 and 12 K3 (the 6 encoder layers at (32, 257, 64)
+    with the key mask, the 6 causal decoder layers at (32, 256, 64)) and 2 K4
+    (the two VQ encodes) a step; finite losses, the frozen VQ parts bitwise
+    unchanged, every trainable generator tensor moved."""
+    from dyadic_interaction_modeling_tpu_torch.engine.s2s_engine import make_lg_train_step
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.models.listener_generator import LG_FROZEN
+
+    model = _lg_model(seed=0).to("cuda")
+    lg_step = make_lg_train_step(model, make_optimizer(model, 1e-5, 0.01, LG_FROZEN), 0.0,
+                                 use_ids=True)
+
+    def step(batch):
+        return {"loss": lg_step(batch)}
+
+    batch = _lg_batch(seed=41)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    med, times, launches, logs = _timed_steps(step, (batch,), "s2s train", S2S_STEP_LAUNCHES)
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    check(bool(frozen) and all(k.startswith(LG_FROZEN) for k in frozen)
+          and all(torch.equal(model.get_parameter(k), before[k]) for k in frozen),
+          f"{len(frozen)} frozen VQ tensors (LG_FROZEN) bitwise unchanged")
+    moving = [k for k, p in model.named_parameters() if p.requires_grad
+              and k.startswith("generator.")]
+    still = [k for k in moving if torch.equal(model.get_parameter(k), before[k])]
+    check(not still, f"all {len(moving)} trainable generator tensors moved "
+          f"(unmoved: {still[:5]})")
+    say(f"s2s train step B={S2S_B} L={L} fp32, {CARD[-1]}, CUDA events: median "
+        f"{med * 1e3:.2f} ms of {[round(t * 1e3, 2) for t in times]} -> "
+        f"{S2S_B * L / med:.0f} frames/s; losses first {float(logs[0]['loss']):.4f} "
+        f"last {float(logs[-1]['loss']):.4f}")
+    windows, top = _trace_steps(step, (batch,), "s2s train")
+    return {"model": model, "launches": launches, "step_ms": med * 1e3,
+            "step_runs_ms": [t * 1e3 for t in times], "windows": windows,
+            "top": [(n, t / 1e3, c) for n, t, c in top]}
+
+
+@phase
+def s2s_train_reference():
+    """One step of the ListenerGenerator loss at S2S_B clips of ragged
+    lengths (128-256) with ids, three times from the same weights: fp32 with
+    the kernels, fp32 with the plain versions, and the plain versions in
+    fp64 (``fp64_where_fp32``, the first run's VQ features and codes in
+    place of the frozen VQs' encodes, as K4 takes fp32 only). Between the
+    fp32 runs: equal VQ features and codes, losses within 1e-5 relative.
+    Gradients, relative to each leaf's largest magnitude: on the non-VQ
+    leaves the kernels within 1e-3 of the plain fp32 run; on every leaf the
+    kernels' error against fp64 within 1e-3 or within 4x the plain fp32
+    run's. The random speaker VQ gives most frames the same few codes, so
+    the encoder's rows hardly differ and its query and key gradients are
+    small differences of large sums: the test of a backward's rounding
+    (``csrc/flash_attention.cu`` on its delta). K4's codes are held against
+    the plain version on the latents it was given."""
+    what = "the s2s training step"
+    batch = _lg_batch(seed=42, lens=[L, 211, 170, 128], moving_speaker=True)
+    state = _lg_model(seed=1).state_dict()
+    runs, streams = [], None
+    for plain, dtype in ((False, torch.float32), (True, torch.float32), (True, torch.float64)):
+        model = _lg_model(seed=1)
+        model.load_state_dict(state)
+        model = model.to("cuda", dtype)
+        src_v, tgt = (x.to(dtype) for x in batch[:2])
+        with contextlib.ExitStack() as stack:
+            calls = stack.enter_context(plain_attention() if plain else k4_calls())
+            if dtype == torch.float64:
+                stack.enter_context(fp64_where_fp32())
+                x_sp, z_li = streams
+                model._encode_streams = lambda *args: (x_sp.to(dtype), z_li)
+            own = model._encode_streams(src_v, tgt, batch[2])
+            streams = streams or own
+            out = model(src_v, tgt, *batch[2:])
+            out.loss.backward()
+        if not plain:
+            k4 = k4_on_path(calls, what)
+        runs.append((float(out.loss.detach()), own, {k: p.grad.double() for k, p in
+                                                     model.named_parameters()
+                                                     if p.grad is not None}))
+        del model
+    (lk, sk, gk), (lp, sp, gp), (_, _, g64) = runs
+    check(all(torch.equal(a, b) for a, b in zip(sk, sp)),
+          "both fp32 runs' speaker VQ features and listener VQ codes equal")
+    rel = abs(lk - lp) / max(abs(lp), 1e-12)
+    check(rel <= 1e-5, f"fp32 s2s step B={S2S_B} ragged, kernels vs plain: loss {lk:.6f} vs "
+          f"{lp:.6f}, rel err {rel:.3g} (tol 1e-5)")
+    ek, ep, ekp = _grad_errs(gk, g64), _grad_errs(gp, g64), _grad_errs(gk, gp)
+    core = [k for k in g64 if "_vq." not in k]
+    worst = max(core, key=ekp.get)
+    check(ekp[worst] <= 1e-3, f"gradients of the {len(core)} non-VQ leaves: kernels vs plain "
+          f"within 1e-3 of each leaf's max, worst {ekp[worst]:.3g} ({worst})")
+    lossy = sorted((k for k in g64 if ep[k] > 1e-4), key=ep.get, reverse=True)
+    for k in lossy[:8]:
+        say(f"  {k}: off fp64 by {ek[k]:.3g} (kernels) and {ep[k]:.3g} (plain fp32); "
+            f"kernels vs plain {ekp[k]:.3g}")
+    bad = [k for k in g64 if ek[k] > max(1e-3, 4 * ep[k])]
+    check(not bad, f"s2s gradients against fp64: the kernels' error within 1e-3 or 4x the "
+          f"plain fp32 run's on each of {len(g64)} leaves ({len(lossy)} leaves where the "
+          f"plain fp32 run is past 1e-4; worst kernel error {max(ek.values()):.3g}, plain "
+          f"fp32 {max(ep.values()):.3g}; failing: {bad[:5]})")
+    return {"loss_rel": rel, "grad_rel": ekp[worst], "grad_rel_leaf": worst, "k4": k4,
+            "kernels_vs_plain_all_leaves": max(ekp.values()),
+            "kernels_vs_fp64": max(ek.values()), "plain_fp32_vs_fp64": max(ep.values()),
+            "lossy_leaves": {k: {"kernels": ek[k], "plain_fp32": ep[k],
+                                 "kernels_vs_plain": ekp[k]} for k in lossy}}
+
+
+def _drive_twin(name, main, argv, runs):
+    """``main(argv)`` with every launch count set to 0 just before and read
+    just after; its exit code and what it printed."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out = _stdout_of(main, argv)
+    torch.cuda.synchronize()
+    runs[name] = {"launches": dict(kernels.LAUNCHES), "s": time.perf_counter() - t0}
+    say(f"{name}: exit {rc}, {runs[name]['s']:.1f} s, launches {runs[name]['launches']}")
+    check(rc == 0, f"{name} ran to its end")
+    return out
+
+
+@phase
+def s2s_generate_path(train):
+    """The ``test_s2s`` loop (``cli.test_s2s.predict``) on the trained model of
+    the s2s training step: S2S_B clips of L = 256, L - 1 codes sampled a
+    clip, every launch count set to 0 just before and read just after (K1
+    255 x 6 layers x (self, cross), K4 for the two VQ encodes), timed. Then
+    one token sequence teacher-forced through ``decode_step`` in fp32 with
+    the kernels and with the plain versions (logits within 1e-3). Then the
+    twins on ViCo files that ``write_vico`` writes (S2S_RF_TRAIN train and
+    S2S_RF_TEST test clips of L): ``cli.train_s2s.main`` (1 epoch), its
+    ``--continuous`` branch (1 epoch), and ``cli.test_s2s.main`` from the
+    first's checkpoint re-saved in the reference layout."""
+    import shutil
+    import tempfile
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import test_s2s, train_s2s
+    from dyadic_interaction_modeling_tpu_torch.data.reference_files import write_vico
+    from dyadic_interaction_modeling_tpu_torch.models.xtrans import init_decoder_cache
+
+    model = train["model"].eval()
+    batch = _lg_batch(seed=43)[:3]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    runs_ms, launches = [], None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        y_true, y_pred, _ = test_s2s.predict(model, [batch], gen)
+        torch.cuda.synchronize()
+        runs_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = launches or dict(kernels.LAUNCHES)
+    say(f"launches of one test_s2s batch: {launches}")
+    check(launches == S2S_GEN_LAUNCHES, f"test_s2s batch launches == {S2S_GEN_LAUNCHES} "
+          "(K1 self and cross in 6 decoder layers x 255 codes, K2 in the 6 encoder layers, "
+          "K4 twice)")
+    check(len(y_pred) == S2S_B and all(p.shape == (L - 1, 56) and bool(
+        torch.isfinite(torch.as_tensor(p)).all()) for p in y_pred),
+          f"test_s2s: {len(y_pred)} predictions of ({L - 1}, 56), all finite")
+    med = statistics.median(runs_ms)
+    say(f"s2s generate, {S2S_B} clips x L={L} fp32, {CARD[-1]}: median {med:.1f} ms of "
+        f"{[round(t, 1) for t in runs_ms]} -> {S2S_B * (L - 1) / med * 1e3:.0f} frames/s")
+
+    with torch.no_grad():
+        enc, prompt = model.encode_context(*batch)
+        dec = model.generator.decoder.net
+        cross = dec.cross_kv(enc)
+        g = torch.Generator(device="cuda").manual_seed(4)
+        seq = torch.cat([prompt, torch.randint(0, 512, (S2S_B, L - 1), device="cuda",
+                                               generator=g)], dim=1)
+        caches = [init_decoder_cache(S2S_B, L, dec.depth, dec.heads, dec.dim_head,
+                                     torch.float32, None, "cuda") for _ in range(2)]
+        worst = 0.0
+        for t in range(L):
+            a = dec.decode_step(seq[:, t: t + 1], caches[0], t, cross, batch[2])
+            with plain_attention():
+                b = dec.decode_step(seq[:, t: t + 1], caches[1], t, cross, batch[2])
+            worst = max(worst, float((a - b).abs().max()))
+    check(worst <= 1e-3, f"s2s teacher-forced decode_step fp32 B={S2S_B}, {L} steps: logits "
+          f"max abs err kernel vs plain {worst:.3g} (tol 1e-3)")
+    del train["model"], model
+    torch.cuda.empty_cache()
+
+    root, cwd = tempfile.mkdtemp(prefix="s2s_files_"), os.getcwd()
+    runs = {}
+    try:
+        write_vico(os.path.join(root, "data"), [L] * (S2S_RF_TEST + S2S_RF_TRAIN),
+                   ["test"] * S2S_RF_TEST + ["train"] * S2S_RF_TRAIN, seed=44)
+        os.makedirs(os.path.join(root, "work"))
+        os.chdir(os.path.join(root, "work"))
+        out = _drive_twin("train_s2s", train_s2s.main,
+                          ["--save-path", os.path.join(root, "lg"), "epochs", "1"], runs)
+        check("perplexity" in out, "train_s2s printed its validation perplexity")
+        steps = S2S_RF_TRAIN // S2S_B
+        want = {"decode_attention": 0, "flash_attention_fwd": 12 * (steps + 2),
+                "flash_attention_bwd": 12 * steps, "nearest_code": 2 * steps + 2 * 2}
+        check(runs["train_s2s"]["launches"] == want, f"train_s2s launches == {want}: {steps} "
+              "steps (12 K2, 12 K3, 2 K4), then one validation batch through the model and "
+              "the generator again (12 K2 and 2 K4 each)")
+        _drive_twin("train_s2s_continuous", train_s2s.main,
+                    ["--continuous", "--save-path", os.path.join(root, "cont"), "epochs", "1"],
+                    runs)
+        got = runs["train_s2s_continuous"]["launches"]
+        check(got["flash_attention_fwd"] > 0 and got["flash_attention_bwd"] > 0
+              and got["decode_attention"] == got["nearest_code"] == 0,
+              f"train_s2s --continuous launched K2 and K3 only: {got}")
+        ckpt = _reference_checkpoint(os.path.join(root, "lg", "best_model.pt"),
+                                     os.path.join(root, "lg.pth.tar"))
+        out = _drive_twin("test_s2s", test_s2s.main, ["--checkpoint", ckpt], runs)
+        check(runs["test_s2s"]["launches"] == S2S_GEN_LAUNCHES and "fid_pose" in out,
+              f"test_s2s on the reference-layout checkpoint: one batch of {S2S_RF_TEST} clips, "
+              f"launches {S2S_GEN_LAUNCHES}, the battery printed")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "generate_ms": med, "generate_runs_ms": runs_ms,
+            "teacher_forced_err": worst, "twins": runs}
+
+
+STREAM_B, STREAM_CHUNK, STREAM_ROUNDS = 4, 8, 31
+STREAM_K1_PER_TOKEN = 2 * 4  # self and cross in slm_defaults' 4 decoder layers
+
+
+def _stream_clip(n, seed):
+    """n synthetic CANDOR-shaped clips of L frames (moving speakers) on the
+    card: (speaker motion, listener motion, audio, mask)."""
+    return _candor(n, seed)
+
+
+def _first_divergence(a, b):
+    differ = (a != b).any(dim=0).nonzero()
+    return None if differ.numel() == 0 else int(differ[0])
+
+
+@phase
+def streaming_path():
+    """``StreamingListenerSession`` on SLMFT at full width (slm_defaults +
+    vq_listener_defaults), batch STREAM_B, chunk 8, max_frames 256. In bf16:
+    one feed, ``start`` from ``tokenize_listener_frames`` (K4 once), then
+    STREAM_ROUNDS rounds of 8 frames and 8 codes, with every launch count
+    set to 0 just before and read just after (K1 8 times a code: self and
+    cross in 4 layers), each round timed on the host clock, synchronized.
+    In fp32: the fed context rows against the offline ``decoder_context``
+    (1e-4); a session fed the whole clip, one code sequence teacher-forced
+    through ``stream_decode_step`` with the kernels and with the plain
+    versions (logits within 1e-3); the first code where greedy streaming and
+    offline ``generate_tokens(greedy=True)`` differ, if they do."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.models.xtrans import generate_tokens
+    from dyadic_interaction_modeling_tpu_torch.serving import StreamingListenerSession
+
+    vs, vl, va, mask = _stream_clip(STREAM_B, seed=51)
+    model = _model(torch.bfloat16, seed=2)[0].to("cuda", torch.bfloat16).eval()
+    sess = StreamingListenerSession(model, batch=STREAM_B, chunk=STREAM_CHUNK, max_frames=L,
+                                    seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    c = STREAM_CHUNK
+    sess.feed(vs[:, :c], va[:, :c])
+    with torch.no_grad():
+        sess.start(model.tokenize_listener_frames(vl[:, :c])[:, :1])
+    times = []
+    for r in range(1, STREAM_ROUNDS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.round(vs[:, r * c: (r + 1) * c], va[:, r * c: (r + 1) * c])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    n_tok = STREAM_ROUNDS * c
+    want = {"decode_attention": STREAM_K1_PER_TOKEN * (1 + n_tok), "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0, "nearest_code": 1}
+    say(f"launches of the streaming session (prompt + {n_tok} codes): {launches}")
+    check(launches == want, f"streaming launches == {want} (K1 {STREAM_K1_PER_TOKEN} a code "
+          "and for the prompt step, K4 once for the prompt, no K2/K3: the chunk extension "
+          "is dense)")
+    toks = sess.tokens()
+    check(tuple(toks.shape) == (STREAM_B, n_tok) and bool(((toks >= 0) & (toks < 512)).all())
+          and sess.frames_fed == L, f"streamed codes {tuple(toks.shape)} in [0, 512), "
+          f"{sess.frames_fed} frames fed")
+    med = statistics.median(times)
+    say(f"streaming round (feed {c} frames + {c} codes) B={STREAM_B} bf16, {CARD[-1]}: median "
+        f"{med * 1e3:.2f} ms of {STREAM_ROUNDS} -> {STREAM_B * c / med:.0f} codes/s")
+    del sess, model
+    torch.cuda.empty_cache()
+
+    model = _model(torch.float32, seed=2)[0].to("cuda").eval()
+    sessions = [StreamingListenerSession(model, batch=STREAM_B, chunk=c, max_frames=L,
+                                         greedy=True) for _ in range(2)]
+    rows = torch.cat([sessions[0].feed(vs[:, t: t + c], va[:, t: t + c])
+                      for t in range(0, L, c)], dim=1)
+    for t in range(0, L, c):
+        sessions[1].feed(vs[:, t: t + c], va[:, t: t + c])
+    with torch.no_grad():
+        ctx, prompt = model.encode_context(vs, vl, va, mask)
+        ctx_err = float((rows - ctx).abs().max())
+        offline = generate_tokens(model.decoder, prompt, L - 1, ctx, mask, greedy=True)
+    check(ctx_err <= 1e-4, f"fp32 session context rows (32 feeds) vs offline decoder_context: "
+          f"max abs err {ctx_err:.3g} (tol 1e-4)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    seq = torch.cat([prompt, torch.randint(0, 512, (STREAM_B, L - 1), device="cuda",
+                                           generator=g)], dim=1)
+    worst = 0.0
+    with torch.no_grad():
+        for t in range(L):
+            a = model.stream_decode_step(seq[:, t: t + 1], sessions[0]._dec, t,
+                                         sessions[0]._cross, sessions[0]._ctx_mask())
+            with plain_attention():
+                b = model.stream_decode_step(seq[:, t: t + 1], sessions[1]._dec, t,
+                                             sessions[1]._cross, sessions[1]._ctx_mask())
+            worst = max(worst, float((a - b).abs().max()))
+    check(worst <= 1e-3, f"fp32 session fed the clip, {L} teacher-forced stream_decode_steps: "
+          f"logits max abs err kernel vs plain {worst:.3g} (tol 1e-3)")
+    greedy = StreamingListenerSession(model, batch=STREAM_B, chunk=c, max_frames=L, greedy=True)
+    for t in range(0, L, c):
+        greedy.feed(vs[:, t: t + c], va[:, t: t + c])
+    greedy.start(prompt)
+    streamed = greedy.generate(L - 1)
+    first = _first_divergence(streamed, offline)
+    agree = float((streamed == offline).float().mean())
+    say(f"fp32 greedy streaming vs offline generate_tokens: {agree:.4f} of codes equal, first "
+        f"divergence at code {first} (exactness is held on the CPU, against JAX)")
+    return {"launches": launches, "round_ms": med * 1e3, "round_runs_ms": [t * 1e3 for t in times],
+            "codes_per_s": STREAM_B * c / med, "ctx_err": ctx_err, "teacher_forced_err": worst,
+            "greedy_first_divergence": first, "greedy_agreement": agree}
+
+
+POOL_P, POOL_ROUNDS, POOL_LEAVE = 8, 24, (2, 12)
+
+
+def _pool_schedule(pool, clips, model, rounds, on_round=None):
+    """Streams join one a round (slot s's stream at round s) until the pool
+    is full, each fed its first chunk and started from the code of its first
+    listener frame (``tokenize_listener_frames``, K4); every started slot
+    then does a ``round`` (8 frames, 8 codes) each round. At round
+    POOL_LEAVE[1] the stream of slot POOL_LEAVE[0] leaves and a new one (the
+    clips' last) takes its slot. ``clips``: (speaker, audio, listener).
+    Returns {slot: stream index}."""
+    c = pool.chunk
+    owner, pos = {}, {}
+    for r in range(rounds):
+        if r == POOL_LEAVE[1]:
+            pool.leave(POOL_LEAVE[0])
+            owner.pop(POOL_LEAVE[0])
+        started = sorted(owner)
+        if started:
+            sp = torch.stack([clips[0][owner[s], pos[s]: pos[s] + c] for s in started])
+            au = torch.stack([clips[1][owner[s], pos[s]: pos[s] + c] for s in started])
+            pool.round(started, sp, au)
+            for s in started:
+                pos[s] += c
+        stream = r if r < pool.capacity else (len(clips[0]) - 1 if r == POOL_LEAVE[1] else None)
+        if stream is not None:
+            s = pool.join(seed=100 + stream)
+            owner[s], pos[s] = stream, c
+            pool.feed([s], clips[0][stream:stream + 1, :c], clips[1][stream:stream + 1, :c])
+            with torch.no_grad():
+                prompt = model.tokenize_listener_frames(clips[2][stream:stream + 1, :c])
+            pool.start([s], prompt[:, :1])
+        if on_round is not None:
+            on_round(r)
+    return owner
+
+
+@phase
+def pool_path():
+    """``StreamingSessionPool`` at capacity POOL_P on the same SLMFT: streams
+    join at staggered rounds (one a round), then every slot does a round (8
+    frames, 8 codes) each round; one stream leaves and a new one takes its
+    slot. In bf16: the rounds at full occupancy timed (host clock,
+    synchronized) for codes/s; K1's launches in one ``generate`` of n codes
+    at partial and at full occupancy, n x 8 at both (one launch a layer and
+    step serves every slot, each slot's bound a key mask). In fp32 and
+    greedy: each slot's logits against a solo session's over the same
+    stream, while their codes agree (1e-4), and the code agreement."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.serving import (
+        StreamingListenerSession, StreamingSessionPool)
+
+    n_streams = POOL_P + 1
+    vs, vl, va, _ = _stream_clip(n_streams, seed=61)
+    c = STREAM_CHUNK
+    model = _model(torch.bfloat16, seed=3)[0].to("cuda", torch.bfloat16).eval()
+    pool = StreamingSessionPool(model, capacity=POOL_P, chunk=c, max_frames=L)
+    times, k1 = [], {}
+
+    def per_generate(tag, slots):
+        before = dict(kernels.LAUNCHES)
+        pool.generate(slots, 4)
+        torch.cuda.synchronize()
+        k1[tag] = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+
+    def on_round(r):
+        if r == 3:
+            per_generate("3 slots", [0, 1, 2])
+        if r == POOL_P:
+            per_generate(f"{POOL_P} slots", list(range(POOL_P)))
+
+    def timed(r):
+        on_round(r)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times.append(time.perf_counter())
+    _pool_schedule(pool, (vs, va, vl), model, POOL_ROUNDS, timed)
+    launches = dict(kernels.LAUNCHES)
+    full = [b - a for a, b in zip(times[POOL_LEAVE[1] + 2:], times[POOL_LEAVE[1] + 3:])]
+    say(f"launches of the pool's {POOL_ROUNDS} rounds: {launches}; of one generate of 4 "
+        f"codes: {k1}")
+    check(launches["nearest_code"] == n_streams and launches["flash_attention_fwd"] == 0
+          and launches["decode_attention"] > 0, f"pool: K4 once a join ({n_streams}), K1 on "
+          "every step, no K2/K3")
+    want = {"decode_attention": 4 * STREAM_K1_PER_TOKEN, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0, "nearest_code": 0}
+    check(all(v == want for v in k1.values()),
+          f"one generate of n codes launches K1 n x {STREAM_K1_PER_TOKEN} whatever the "
+          f"occupancy: {k1}")
+    lens = [pool.tokens_generated(s) for s in range(POOL_P)]
+    check(all(bool(((pool.tokens(s) >= 0) & (pool.tokens(s) < 512)).all())
+              for s in range(POOL_P)), f"pool codes in [0, 512); codes a slot {lens}")
+    med = statistics.median(full)
+    say(f"pool round at full occupancy ({POOL_P} slots x {c} frames + {c} codes) bf16, "
+        f"{CARD[-1]}: median {med * 1e3:.2f} ms of {len(full)} -> "
+        f"{POOL_P * c / med:.0f} codes/s")
+    del pool, model
+    torch.cuda.empty_cache()
+
+    model = _model(torch.float32, seed=3)[0].to("cuda").eval()
+    rounds = 12
+    pool = StreamingSessionPool(model, capacity=POOL_P, chunk=c, max_frames=L, greedy=True)
+    solos = {}
+    worst, compared = 0.0, 0
+
+    def compare(r):
+        nonlocal worst, compared
+        for s, sess in solos.items():
+            if pool.tokens(s).numel() and torch.equal(pool.tokens(s), sess.tokens()[0]):
+                worst = max(worst, float((pool._logits[s] - sess._logits[0]).abs().max()))
+                compared += 1
+
+    class Shadow:
+        """Drives a solo session for every pool slot alongside the pool."""
+
+        def __init__(self, inner):
+            self.inner, self.capacity, self.chunk = inner, inner.capacity, inner.chunk
+
+        def join(self, seed):
+            s = self.inner.join(seed)
+            solos[s] = StreamingListenerSession(model, batch=1, chunk=c, max_frames=L,
+                                                greedy=True)
+            return s
+
+        def leave(self, s):
+            self.inner.leave(s)
+            solos.pop(s)
+
+        def feed(self, slots, sp, au):
+            self.inner.feed(slots, sp, au)
+            solos[slots[0]].feed(sp, au)
+
+        def start(self, slots, prompt):
+            self.inner.start(slots, prompt)
+            solos[slots[0]].start(prompt)
+
+        def round(self, slots, sp, au):
+            self.inner.round(slots, sp, au)
+            for i, s in enumerate(slots):
+                solos[s].round(sp[i: i + 1], au[i: i + 1])
+
+    _pool_schedule(Shadow(pool), (vs, va, vl), model, rounds, compare)
+    agree = [float((pool.tokens(s) == sess.tokens()[0]).float().mean())
+             for s, sess in solos.items()]
+    check(compared > 0 and worst <= 1e-4, f"fp32 pool slots vs solo sessions over the same "
+          f"streams: logits max abs err {worst:.3g} over {compared} comparisons (tol 1e-4)")
+    say(f"fp32 greedy code agreement, pool slot vs solo session: "
+        f"{[round(a, 4) for a in agree]}")
+    return {"launches": launches, "k1_per_generate_4": k1, "round_ms": med * 1e3,
+            "round_runs_ms": [t * 1e3 for t in full], "codes_per_s": POOL_P * c / med,
+            "logits_err": worst, "compared": compared, "greedy_agreement": agree}
+
+
+@phase
+def speaker_streaming_path():
+    """``StreamingSpeakerSession`` at the BIWI width of the speaker phases,
+    fp32, one session fed a whole clip of BIWI_L frames (chunk 8), started
+    from the clip's prompt and generating BIWI_L - 1 codes greedily, with
+    every launch count set to 0 just before and read just after, against
+    ``make_speaker_generator`` greedy on the clip: the first code where they
+    differ, if they do; ``mesh`` within 1e-4 of the offline decode of the
+    same codes."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import make_speaker_generator
+    from dyadic_interaction_modeling_tpu_torch.serving import StreamingSpeakerSession
+
+    model = _speaker_model(seed=0).to("cuda").eval()
+    clip = tuple(x[:1] for x in _biwi_batch(1, seed=71))
+    verts, emoca, audio, mask, template, sids = clip
+    with torch.no_grad():
+        offline = make_speaker_generator(model)(clip, None, 1, greedy=True,
+                                                return_tokens=True)[1]
+        prompt = model.encode_context(*clip)[1]
+    c = STREAM_CHUNK
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess = StreamingSpeakerSession(model, chunk=c, max_frames=BIWI_L, speaker_ids=sids,
+                                   greedy=True)
+    for t in range(0, BIWI_L, c):
+        sess.feed(audio[:, t: t + c])
+    sess.start(prompt)
+    toks = sess.generate(BIWI_L - 1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    say(f"launches of the speaker session ({BIWI_L - 1} codes): {launches}; {secs * 1e3:.1f} "
+        f"ms fp32, {CARD[-1]}")
+    check(launches["decode_attention"] == STREAM_K1_PER_TOKEN * BIWI_L
+          and launches["nearest_code"] == 0,
+          f"speaker session launches K1 {STREAM_K1_PER_TOKEN} a code (and the prompt step), "
+          f"no K4: {launches}")
+    first = _first_divergence(toks, offline)
+    say(f"fp32 greedy speaker session vs make_speaker_generator: first divergence at code "
+        f"{first}, {float((toks == offline).float().mean()):.4f} of codes equal")
+    mesh, emo = sess.mesh(template)
+    with torch.no_grad():
+        ref_mesh, ref_emo = model.decode_emoca(toks, from_logits=False)
+    err = max(float((mesh - ref_mesh - template[:, None]).abs().max()),
+              float((emo - ref_emo).abs().max()))
+    check(tuple(mesh.shape) == (1, BIWI_L - 1, BIWI_VDIM) and err <= 1e-4,
+          f"speaker session mesh {tuple(mesh.shape)} within 1e-4 of the offline decode of the "
+          f"same codes: {err:.3g}")
+    return {"launches": launches, "ms": secs * 1e3, "greedy_first_divergence": first,
+            "mesh_err": err}
+
+
 @phase
 def vq_attention_routes():
     """The VQ attention by both routes, forward and backward, graph-timed
@@ -2150,7 +2775,7 @@ def _flash_entry(name, line, which, tt, k23, by_path):
 
 
 def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k4, k1, k23,
-                 t, tt, routes, refs, ft64, build_s, ptxas, biwi):
+                 t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
@@ -2164,7 +2789,14 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
              "test_biwi": biwi["test_biwi"]["launches"],
              f"speaker_finetune_{TRAIN_STEPS}_steps": biwi["finetune"]["launches"],
              "train_converter_2_epochs": biwi["converter"]["launches"],
-             f"converter_{TRAIN_STEPS}_steps": biwi["converter"]["step_launches"]}
+             f"converter_{TRAIN_STEPS}_steps": biwi["converter"]["step_launches"],
+             f"s2s_train_{TRAIN_STEPS}_steps": s2s["train"]["launches"],
+             "s2s_generate_batch": s2s["generate"]["launches"],
+             **{f"s2s_files_{name}": r["launches"]
+                for name, r in s2s["generate"]["twins"].items()},
+             f"streaming_session_{STREAM_ROUNDS}_rounds": s2s["streaming"]["launches"],
+             f"pool_{POOL_ROUNDS}_rounds": s2s["pool"]["launches"],
+             "speaker_streaming_session": s2s["speaker_streaming"]["launches"]}
 
     def by_path(name, generate=None):
         out = {} if generate is None else generate
@@ -2242,7 +2874,21 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
         "converter_step_ms": biwi["converter"]["step_ms"],
         "converter_step_runs_ms": biwi["converter"]["step_runs_ms"],
         "converter_busy_share": biwi["converter"]["windows"]["card"]["busy_share"],
-        "converter_losses": biwi["converter"]["losses"]}
+        "converter_losses": biwi["converter"]["losses"],
+        "s2s_train_step_ms": s2s["train"]["step_ms"],
+        "s2s_train_step_runs_ms": s2s["train"]["step_runs_ms"],
+        "s2s_train_frames_per_s": S2S_B * L / s2s["train"]["step_ms"] * 1e3,
+        "s2s_train_busy_share": s2s["train"]["windows"]["card"]["busy_share"],
+        "s2s_train_traced_windows": s2s["train"]["windows"],
+        "s2s_train_reference": {k: v for k, v in s2s["train_ref"].items() if k != "k4"},
+        "s2s_generate_ms": s2s["generate"]["generate_ms"],
+        "s2s_generate_runs_ms": s2s["generate"]["generate_runs_ms"],
+        "s2s_teacher_forced_err": s2s["generate"]["teacher_forced_err"],
+        "s2s_twins": s2s["generate"]["twins"],
+        "streaming": {k: v for k, v in s2s["streaming"].items() if k != "launches"},
+        "pool": {k: v for k, v in s2s["pool"].items() if k != "launches"},
+        "speaker_streaming": {k: v for k, v in s2s["speaker_streaming"].items()
+                              if k != "launches"}}
 
 
 def main() -> int:
@@ -2295,16 +2941,28 @@ def main() -> int:
     biwi["converter"] = converter_path()
     torch.cuda.empty_cache()
     biwi["k1"] = speaker_timings()
+    torch.cuda.empty_cache()
+    s2s = {"train": s2s_train_path(), "train_ref": s2s_train_reference()}
+    s2s["generate"] = s2s_generate_path(s2s["train"]) if s2s["train"] else None
+    torch.cuda.empty_cache()
+    s2s["streaming"] = streaming_path()
+    torch.cuda.empty_cache()
+    s2s["pool"] = pool_path()
+    torch.cuda.empty_cache()
+    s2s["speaker_streaming"] = speaker_streaming_path()
+    torch.cuda.empty_cache()
     routes = vq_attention_routes()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_wide, mqa_ref,
                             mqa_wide_ref, train, train_ref, tt, vq, vq_ref, ft, ft_ref,
-                            ft64, spk, spk_ref, rf, routes, *biwi.values()):
+                            ft64, spk, spk_ref, rf, routes, *biwi.values(), *s2s.values()):
         say(f"FAILED: {FAILURES}")
         return 1
     refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
-            "speaker_vq_train": spk_ref, "speaker_finetune": biwi["finetune"]}
+            "speaker_vq_train": spk_ref, "speaker_finetune": biwi["finetune"],
+            "s2s_train": s2s["train_ref"]}
     say(json.dumps(kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf,
-                                k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi)))
+                                k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi,
+                                s2s)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,10 @@
 
 A copy of the parts of ``dyadic_interaction_modeling_tpu/config.py`` that the
 port's CLIs need (``CfgNode``, ``load_cfg_from_cfg_file``, ``slm_defaults``,
-``vq_listener_defaults``, ``vq_speaker_defaults``, the ``KEY VALUE`` override
-merge) plus the ``vq_cfg_for`` rule of ``cli/common.py``. The port keeps its
+``vq_listener_defaults``, ``vq_speaker_defaults``,
+``listener_generator_defaults``, the ``KEY VALUE`` override
+merge) plus the ``vq_cfg_for`` rule of ``cli/common.py`` and the seq2seq
+CLIs' VQ rule (``lg_vq_cfg``). The port keeps its
 own copy so it never imports the JAX package.
 """
 
@@ -152,6 +154,24 @@ def slm_defaults() -> CfgNode:
     ))
 
 
+def listener_generator_defaults() -> CfgNode:
+    """Seq2seq ListenerGenerator dims without pretraining (seq2seq.py:177-192)."""
+    return CfgNode(dict(
+        dim=512,
+        enc_depth=6,
+        enc_heads=8,
+        enc_max_seq_len=1024,
+        dec_num_tokens=512,
+        dec_depth=6,
+        dec_heads=8,
+        dec_max_seq_len=1024,
+        num_identities=100,
+        id_embed_dim=256,
+        epochs=10,
+        dtype="float32",
+    ))
+
+
 def vq_cfg_for(slm_cfg, synthetic: bool = False) -> CfgNode:
     """VQ config consistent with an SLM config: the decoder predicts VQ code
     indices, so n_embed must equal num_tokens. With ``synthetic``, the VQ is
@@ -162,5 +182,19 @@ def vq_cfg_for(slm_cfg, synthetic: bool = False) -> CfgNode:
         vq.update(dict(hidden_size=max(32, slm_cfg.dim),
                        num_hidden_layers=1, num_attention_heads=2,
                        intermediate_size=2 * max(32, slm_cfg.dim),
+                       zquant_dim=32))
+    return vq
+
+
+def lg_vq_cfg(lg_cfg, synthetic: bool = False) -> CfgNode:
+    """The listener VQ config of a ListenerGenerator config (both VQs take
+    it, as the JAX CLIs build them, ``cli/train_s2s.py:130-135``): n_embed is
+    the decoder's vocabulary; with ``synthetic`` and dim < 128 the VQ is
+    shrunk for smoke runs."""
+    vq = vq_listener_defaults()
+    vq.n_embed = lg_cfg.dec_num_tokens
+    if synthetic and lg_cfg.dim < 128:
+        vq.update(dict(hidden_size=max(32, lg_cfg.dim), num_hidden_layers=1,
+                       num_attention_heads=2, intermediate_size=2 * max(32, lg_cfg.dim),
                        zquant_dim=32))
     return vq

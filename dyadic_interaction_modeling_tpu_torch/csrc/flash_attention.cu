@@ -69,8 +69,17 @@
 // * Backward: two deterministic passes, no atomics, both recomputing
 //   P = exp(s - lse) from the saved lse. The TPU kernel carried dk/dv across
 //   a sequential grid; Hopper's blocks run in parallel with nothing carried.
-//   - dq: one block a query tile first computes delta = rowsum(dO * O) of its
-//     rows and writes it out, then loops over the key tiles;
+//   - dq: one block a query tile sweeps the key tiles twice. The first
+//     sweep computes S and dP and sums P and P dP of each row: delta =
+//     sum(P dP) / sum(P), written out. The second computes them again, in
+//     the same order, and dS = P (dP - delta), dQ += dS K. A row's dS then
+//     sums to 0 to rounding, as autograd's softmax backward gives it; the
+//     usual delta = rowsum(dO * O) (the Pallas body's) differs from
+//     sum(P dP) by the forward's rounding, which dq multiplies by the row's
+//     mean key: where a row's keys are nearly alike (an encoder over frames
+//     that share a few VQ codes) that is several times fp32's error in the
+//     query and key gradients. The first sweep costs two of the backward's
+//     seven tile products more;
 //   - dk/dv: one block a key tile loops over the query tiles at or below the
 //     diagonal, reading that delta, with Sᵀ = K Qᵀ and dPᵀ = V dOᵀ computed
 //     so that Pᵀ and dSᵀ come out as A operands of dV += Pᵀ dO and
@@ -408,20 +417,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_acc<D>(acc, inv, o + base, q0 + m0, L, lane);
 }
 
-// K3, first pass: dq and delta. Grid (query tiles, rows).
+// K3, first pass: delta, then dq. Grid (query tiles, rows).
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ o,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const uint8_t* __restrict__ mask, float* __restrict__ delta,
-                    float* __restrict__ dq, int L, int mask_div, float scale) {
-  constexpr int TILE = tile_floats(D), LD = row_floats(D);
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const uint8_t* __restrict__ mask,
+                    float* __restrict__ delta, float* __restrict__ dq, int L, int mask_div,
+                    float scale) {
+  constexpr int TILE = tile_floats(D);
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* dOs = Qs + TILE;
   float* Ks = dOs + TILE;     // 2 buffers, then the merge area
-  float* Vs = Ks + 2 * TILE;  // 2 buffers; the second holds o until delta is taken
+  float* Vs = Ks + 2 * TILE;  // 2 buffers
   float* Dl = Vs + 2 * TILE;  // delta of the 64 query rows
   uint8_t* Ms = reinterpret_cast<uint8_t*>(Dl + TILE_ROWS);  // 2 x 64 key flags
 
@@ -429,6 +438,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * TILE_ROWS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, m0 = 16 * (warp % STRIPS), c0 = HALF * (warp / STRIPS);
+  const int half = warp / STRIPS, slot = (warp % STRIPS) * 32 + lane;
   const size_t base = (size_t)r * L * D;
   const uint8_t* mr = mask ? mask + (size_t)(r / mask_div) * L : nullptr;
   const int k_end = CAUSAL ? min(L, q0 + TILE_ROWS) : L;
@@ -437,76 +447,98 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile<D>(Qs, q + base, q0, L);
   load_tile<D>(dOs, dout + base, q0, L);
-  load_tile<D>(Vs + TILE, o + base, q0, L);
-  cp_async_commit();
-  load_tile<D>(Ks, k + base, 0, L);
-  load_tile<D>(Vs, v + base, 0, L);
-  cp_async_commit();
-  int flag = tid < TILE_ROWS ? key_live(mr, tid, L) : 0;
 
   // lse of rows g and g + 8 in log2 units; rows past L take +inf, so p = 0
-  float lse2[2], dl[2];
+  float lse2[2], dl[2] = {}, psum[2] = {}, dsum[2] = {};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + m0 + g + 8 * h;
     lse2[h] = row < L ? lse[(size_t)r * L + row] * LOG2E : INFINITY;
   }
-  cp_async_wait<1>();  // q, do and o
-  __syncthreads();
-  {  // delta = rowsum(do * o): P lanes a row, every P-th column each
-    constexpr int P = THREADS / TILE_ROWS;
-    const int row = tid / P;
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < D / P; ++i) {
-      const int c = P * i + tid % P;
-      d = fmaf(dOs[row * LD + c], Vs[TILE + row * LD + c], d);
-    }
-#pragma unroll
-    for (int m = 1; m < P; m *= 2) d += __shfl_xor_sync(0xffffffffu, d, m);
-    if (tid % P == 0) {
-      Dl[row] = d;
-      if (q0 + row < L) delta[(size_t)r * L + q0 + row] = d;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < 2; ++h) dl[h] = Dl[m0 + g + 8 * h];
 
+  // Two sweeps over the key tiles, the same products in the same order: the
+  // first sums p and p dp of each row, the second takes dS = p (dp - delta)
+  // with delta = sum(p dp) / sum(p), so that sum_j dS_ij is 0 to rounding.
+  // delta = rowsum(dO o), the usual choice, differs from sum(p dp) by the
+  // forward's rounding, which the backward then multiplies by sum_j p_ij k_j
+  // (the mean key): where a row's keys are nearly alike, that error is many
+  // times dq itself.
   float acc[D / 8][4] = {};
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1, k0 = j * TILE_ROWS;
-    if (tid < TILE_ROWS) Ms[buf * TILE_ROWS + tid] = (uint8_t)flag;
-    cp_async_wait<0>();
-    // tile j has landed; tile j - 1 (or o, at j = 0) is consumed
-    const int live = __syncthreads_count(flag);
-    flag = 0;
-    if (j + 1 < n_tiles) {
-      load_tile<D>(Ks + (buf ^ 1) * TILE, k + base, k0 + TILE_ROWS, L);
-      load_tile<D>(Vs + (buf ^ 1) * TILE, v + base, k0 + TILE_ROWS, L);
-      if (tid < TILE_ROWS) flag = key_live(mr, k0 + TILE_ROWS + tid, L);
-    }
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    load_tile<D>(Ks, k + base, 0, L);
+    load_tile<D>(Vs, v + base, 0, L);
     cp_async_commit();
-    if (!live || (CAUSAL && k0 + c0 > q0 + m0 + 15)) continue;
-    float s[HT][4] = {}, dp[HT][4] = {};
-    mma_abT<D, HT>(s, Qs, m0, Ks + buf * TILE, c0, lane);
-    mma_abT<D, HT>(dp, dOs, m0, Vs + buf * TILE, c0, lane);
-    scale_and_mask<HT>(s, scale_log2, Ms + buf * TILE_ROWS + c0, live < TILE_ROWS,
-                       CAUSAL && k0 + c0 + HALF - 1 > q0 + m0, q0 + m0, k0 + c0, lane);
-    // p = exp2(s - lse), 0 where masked (s = -inf) or lse = +inf; dS in place
-#pragma unroll
-    for (int n = 0; n < HT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        s[n][e] = fast_exp2(s[n][e] - lse2[h]) * (dp[n][e] - dl[h]) * scale;
+    int flag = tid < TILE_ROWS ? key_live(mr, tid, L) : 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int buf = j & 1, k0 = j * TILE_ROWS;
+      if (tid < TILE_ROWS) Ms[buf * TILE_ROWS + tid] = (uint8_t)flag;
+      cp_async_wait<0>();
+      // tile j has landed; tile j - 1 is consumed
+      const int live = __syncthreads_count(flag);
+      flag = 0;
+      if (j + 1 < n_tiles) {
+        load_tile<D>(Ks + (buf ^ 1) * TILE, k + base, k0 + TILE_ROWS, L);
+        load_tile<D>(Vs + (buf ^ 1) * TILE, v + base, k0 + TILE_ROWS, L);
+        if (tid < TILE_ROWS) flag = key_live(mr, k0 + TILE_ROWS + tid, L);
       }
-    mma_pb<D, HT>(acc, s, Ks + buf * TILE, c0, lane);  // dQ += dS K
+      cp_async_commit();
+      if (!live || (CAUSAL && k0 + c0 > q0 + m0 + 15)) continue;
+      float s[HT][4] = {}, dp[HT][4] = {};
+      mma_abT<D, HT>(s, Qs, m0, Ks + buf * TILE, c0, lane);
+      mma_abT<D, HT>(dp, dOs, m0, Vs + buf * TILE, c0, lane);
+      scale_and_mask<HT>(s, scale_log2, Ms + buf * TILE_ROWS + c0, live < TILE_ROWS,
+                         CAUSAL && k0 + c0 + HALF - 1 > q0 + m0, q0 + m0, k0 + c0, lane);
+      // p = exp2(s - lse), 0 where masked (s = -inf) or lse = +inf
+#pragma unroll
+      for (int n = 0; n < HT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const float p = fast_exp2(s[n][e] - lse2[h]);
+          if (sweep == 0) {
+            psum[h] += p;
+            dsum[h] = fmaf(p, dp[n][e], dsum[h]);
+          } else {
+            s[n][e] = p * (dp[n][e] - dl[h]) * scale;  // dS in place
+          }
+        }
+      if (sweep == 1) mma_pb<D, HT>(acc, s, Ks + buf * TILE, c0, lane);  // dQ += dS K
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every tile read: the K buffers are free
+    if (sweep == 1) break;
+    // delta of rows g and g + 8: the four lanes of a row, then the halves,
+    // through the K buffers
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int m = 1; m < 4; m *= 2) {
+        psum[h] += __shfl_xor_sync(0xffffffffu, psum[h], m);
+        dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], m);
+      }
+    const bool writer = (lane & 3) == 0;
+    if (half && writer)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Ks[2 * (m0 + g + 8 * h)] = psum[h];
+        Ks[2 * (m0 + g + 8 * h) + 1] = dsum[h];
+      }
+    __syncthreads();  // after the next one the K buffers are free for the second sweep
+    if (!half && writer)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + g + 8 * h;
+        const float ps = psum[h] + Ks[2 * row], ds = dsum[h] + Ks[2 * row + 1];
+        const float d = ps > 0.f ? ds / ps : 0.f;  // 0 for a row that attends nothing
+        Dl[row] = d;
+        if (q0 + row < L) delta[(size_t)r * L + q0 + row] = d;
+      }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) dl[h] = Dl[m0 + g + 8 * h];
   }
 
   // the halves' dq join, in the K and V buffers
-  cp_async_wait<0>();
-  const int half = warp / STRIPS, slot = (warp % STRIPS) * 32 + lane;
   join_halves(
       Ks, half, [&](float* x) { stash(x, acc, slot); },
       [&](const float* x) { add_stashed(acc, x, slot); });
@@ -658,8 +690,8 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((L + TILE_ROWS - 1) / TILE_ROWS, rows);
   flash_bwd_dq_kernel<D, CAUSAL><<<grid, THREADS, smem_dq, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)o, (const float*)dout,
-      lse, mask, delta, (float*)dq, L, mask_div, scale);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, mask,
+      delta, (float*)dq, L, mask_div, scale);
   // reads the delta the dq pass wrote: same stream, so it runs after it
   flash_bwd_dkdv_kernel<D, CAUSAL><<<grid, THREADS, smem_dkdv, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, delta, mask,

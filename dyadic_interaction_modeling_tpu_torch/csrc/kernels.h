@@ -39,8 +39,9 @@ cudaError_t flash_attention_fwd_launch(const void* q, const void* k, const void*
                                        bool causal, float scale, cudaStream_t stream);
 
 // K3 in fp32, flash_attention.cu. Inputs as K2's plus dout (like o); dq, dk,
-// dv like q; delta (rows, L) fp32 scratch. Two launches: dq (which also
-// writes delta), then dk/dv.
+// dv like q; delta (rows, L) fp32 scratch. Two launches: dq (which first
+// computes delta from its own P and dP, so o is not read), then dk/dv. o
+// stays in the signature the binding calls for both dtypes.
 cudaError_t flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout,
                                        const float* lse, const uint8_t* mask,

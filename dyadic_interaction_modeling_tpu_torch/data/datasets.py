@@ -9,6 +9,9 @@ A copy of the ViCo and CANDOR readers of
   sentiment and the speaker and listener ids come from ``RLD_data.csv``;
   clips keep 5 <= len <= 1024 with their three streams aligned.
 * ``ViCoListenerDataset`` / ``ViCoSpeakerDataset``: one stream of those clips.
+* ``LmListenerDataset`` (JAX ``:192``): LM-Listener's ``segments_{mode}.pth``
+  (HuBERT features interpolated to the motion, 24-frame minimum, chunks of
+  1024 frames).
 * ``candor_split``: speaker/listener utterance pickles, split 95/5 by
   conversation id with ``random.Random(42)``, 5 <= len <= 250.
 * ``read_biwi_emoca_data`` / ``BiwiEmocaDataset`` (JAX ``:243-364``, the
@@ -214,6 +217,59 @@ def _interp_to_length(array: np.ndarray, new_t: int) -> np.ndarray:
     hi = np.minimum(lo + 1, t - 1)
     w = (pos - lo)[:, None]
     return (array[lo] * (1 - w) + array[hi] * w).astype(np.float32)
+
+
+class LmListenerDataset:
+    """LM-Listener segments (``segments_{mode}.pth``; the reference's
+    ``data_loader.py:208-245`` + ``l2l.py:31-76``): pose and expression
+    concatenated; the precomputed ``hubert_feat`` audio interpolated to the
+    motion length (a split whose start equals its end skipped), or zero
+    768-d audio; clips of mismatched lengths or under 24 frames skipped; a
+    clip of ``chunk`` frames or more cut into ``chunk``-frame pieces.
+    Items: (speaker pose+exp || audio (L, 56 + 768), listener pose+exp
+    (L, 56), fname)."""
+
+    def __init__(self, data_path: str, mode: str = "train", chunk: int = 1024,
+                 use_hubert: bool = True):
+        import torch
+
+        payload = torch.load(os.path.join(data_path, f"segments_{mode}.pth"),
+                             map_location="cpu", weights_only=False)
+        self.data = []
+        for item in payload:
+            if use_hubert and "hubert_feat" in item:
+                s, e = item.get("split_start_time"), item.get("split_end_time")
+                if s is not None and s == e:
+                    continue  # l2l.py:41-43
+                item = dict(item)
+                item["hubert_feat"] = _interp_to_length(
+                    np.asarray(item["hubert_feat"]), len(item["p0_exp"]))
+            if len(item["p0_exp"]) != len(item["p1_exp"]) or len(item["p0_exp"]) < 24:
+                continue
+            if len(item["p0_exp"]) < chunk:
+                self.data.append(item)
+                continue
+            keys = ("p0_exp", "p1_exp", "p0_pose", "p1_pose") + (
+                ("hubert_feat",) if "hubert_feat" in item else ())
+            for j in range(len(item["p0_exp"]) // chunk):
+                piece = {k: item[k][j * chunk: (j + 1) * chunk] for k in keys}
+                piece["fname"] = item["fname"]
+                self.data.append(piece)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index: int):
+        it = self.data[index]
+        sp = np.concatenate([np.asarray(it["p1_pose"], np.float32),
+                             np.asarray(it["p1_exp"], np.float32)], axis=1)
+        li = np.concatenate([np.asarray(it["p0_pose"], np.float32),
+                             np.asarray(it["p0_exp"], np.float32)], axis=1)
+        if "hubert_feat" in it:
+            audio = np.asarray(it["hubert_feat"], np.float32)
+        else:
+            audio = np.zeros((sp.shape[0], 768), dtype=np.float32)
+        return np.concatenate([sp, audio], axis=1), li, it["fname"]
 
 
 def load_wav_16k(path: str) -> np.ndarray:

@@ -13,7 +13,12 @@ of ``video`` and, for the speaker, ``audio``), which ``candor_split`` reads.
 reads it (the reference's ``dataset/biwi.py:70-76``): ``wav/<stem>.wav``
 (16 kHz, 16-bit PCM), ``vertices_npy/<stem>.npy``,
 ``emoca_biwi/<stem>.pkl`` (a dict of frames, each ``pose`` (6) and ``exp``
-(50)) and ``templates.pkl``. The motion is ``data.synthetic``'s: sums of
+(50)) and ``templates.pkl``. ``write_lm_listener`` writes LM-Listener's
+``segments_{mode}.pth`` (a ``torch.save``d list of segment dicts: ``p0_*``
+the listener's and ``p1_*`` the speaker's ``pose`` (L, 6) and ``exp``
+(L, 50), ``hubert_feat`` (H, 768) at its own frame rate,
+``split_start_time`` / ``split_end_time`` and ``fname``), which
+``data.datasets.LmListenerDataset`` reads. The motion is ``data.synthetic``'s: sums of
 random sinusoids per channel.
 """
 
@@ -117,3 +122,32 @@ def write_biwi(root: str, clips: Sequence[Tuple[str, int]], n_frames: int,
             _dump(os.path.join(root, "emoca_biwi", f"{stem}.pkl"), emoca)
     _dump(os.path.join(root, "templates.pkl"), templates)
     return templates
+
+
+def write_lm_listener(root: str, clips: Sequence[Dict], mode: str = "train",
+                      seed: int = 0) -> str:
+    """One segment a dict of ``clips``: ``length`` speaker frames,
+    ``listener_length`` listener frames (default ``length``),
+    ``hubert_frames`` rows of HuBERT features (absent: the segment has no
+    ``hubert_feat``) and ``split`` its (start, end) times (default
+    (0, length / 30)). Returns the file's path."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    segments = []
+    for i, spec in enumerate(clips):
+        n_sp = int(spec["length"])
+        n_li = int(spec.get("listener_length", n_sp))
+        sp, li = _smooth_motion(rng, n_sp, 56), _smooth_motion(rng, n_li, 56)
+        start, end = spec.get("split", (0.0, n_sp / 30.0))
+        seg = {"fname": f"seg{i:04d}", "p1_pose": sp[:, :6], "p1_exp": sp[:, 6:],
+               "p0_pose": li[:, :6], "p0_exp": li[:, 6:], "split_start_time": start,
+               "split_end_time": end}
+        if "hubert_frames" in spec:
+            seg["hubert_feat"] = (rng.standard_normal((int(spec["hubert_frames"]), 768))
+                                  .astype(np.float32) * 0.1)
+        segments.append(seg)
+    path = os.path.join(root, f"segments_{mode}.pth")
+    os.makedirs(root, exist_ok=True)
+    torch.save(segments, path)
+    return path

@@ -103,3 +103,17 @@ def sts(x: np.ndarray, y: np.ndarray, timestep: float = 0.1) -> float:
     """Temporal-derivative distance (eval_utils.py:85-91)."""
     dx, dy = np.diff(x, axis=0), np.diff(y, axis=0)
     return float(np.sqrt(np.sum((dx - dy) ** 2) / timestep))
+
+
+def perplexity_from_logits(logits: np.ndarray, targets: np.ndarray,
+                           ignore_index: int = -100) -> float:
+    """torcheval.metrics.Perplexity equivalent (x_engine.py:68-88):
+    exp(mean NLL over the targets that are not ``ignore_index``), in fp64."""
+    logits = np.asarray(logits, dtype=np.float64)
+    targets = np.asarray(targets)
+    logp = logits - logits.max(axis=-1, keepdims=True)
+    logp = logp - np.log(np.exp(logp).sum(axis=-1, keepdims=True))
+    keep = targets != ignore_index
+    safe = np.clip(targets, 0, logits.shape[-1] - 1)
+    nll = -np.take_along_axis(logp, safe[..., None], axis=-1)[..., 0]
+    return float(np.exp(nll[keep].mean()))

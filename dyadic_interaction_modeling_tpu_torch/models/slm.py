@@ -26,7 +26,7 @@ four patch embeddings and ``decoder_joint``. The encoders have no
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -198,6 +198,19 @@ class _SLMBase(nn.Module):
         z_l = torch.where(pos_l < lengths[:, None], idx_l, IGNORE)
         return z_s, z_l
 
+    # --- streaming decode (serving/ drives these; ``slm.py:176-186``) ---
+
+    def stream_cross_kv(self, ctx_chunk: torch.Tensor
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each decoder layer's cross-attention (k, v) of a context chunk:
+        linear per position, so appending chunks equals ``cross_kv`` of the
+        whole context."""
+        return self.decoder.cross_kv(ctx_chunk)
+
+    def stream_decode_step(self, token: torch.Tensor, cache: Dict[str, torch.Tensor], t,
+                           cross_kv, context_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.decoder.decode_step(token, cache, t, cross_kv, context_mask)
+
 
 class SLM(_SLMBase):
     """Dyadic masked pretraining model (seq2seq_pretrain.py:72-323)."""
@@ -366,6 +379,29 @@ class SLMFT(_SLMBase):
                                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.listener_vq.decode_indices(tokens, lengths)
 
+    # --- streaming serving (``serving/streaming.py``, ``serving/pool.py``).
+    # The speaker encoders run under a triangular attn_mask, so frame t's
+    # encoding never changes as later frames arrive: a KV-cached extension
+    # chunk by chunk is exact.
+
+    def encode_context_chunk(self, v_speaker_chunk: torch.Tensor,
+                             v_audio_chunk: torch.Tensor,
+                             enc_s_cache: Dict[str, torch.Tensor],
+                             enc_j_cache: Dict[str, torch.Tensor], t) -> torch.Tensor:
+        """A (B, C, dim_in) speaker chunk whose first frame is at ``t`` (int,
+        or a (B,) tensor of each row's own) encoded causally against the two
+        encoders' KV caches, updated in place: rows [t, t+C) of
+        ``decoder_context`` (B, C, dim + dim_audio)."""
+        h = v_speaker_chunk.to(self.dtype) + self.patch_embed_s
+        x = self.encoder_s.extend(h, enc_s_cache, t)
+        x = self.encoder_joint.extend(x, enc_j_cache, t)
+        return self.decoder_context(self.norm_s(x), v_audio_chunk)
+
+    def tokenize_listener_frames(self, v_listener: torch.Tensor) -> torch.Tensor:
+        """Listener frames -> the listener VQ's codes, clamped at 0 (a
+        streaming prompt from the first frames)."""
+        return torch.clamp(self.listener_vq.encode_indices(v_listener.to(self.dtype)), min=0)
+
 
 class MeshHead(nn.Sequential):
     """Linear(768, 768) -> LeakyReLU(0.2) -> Linear(768, vertice_dim)
@@ -480,6 +516,23 @@ class SpeakerSLMFT(_SLMBase):
         """EMOCA frames -> the speaker VQ's codes, clamped at 0 (a prompt from
         the first frames of a stream)."""
         return torch.clamp(self.speaker_vq.encode_indices(v_emoca.to(self.dtype)), min=0)
+
+    # --- streaming serving (``serving/speaker.py``): a frame's context row is
+    # the speaker embedding and that frame's audio, with no temporal mixing
+
+    def stream_speaker_context(self, v_audio_chunk: torch.Tensor,
+                               speaker_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The decoder-context rows of an audio chunk: those of
+        ``encode_context``'s context for the same frames."""
+        return self._context(v_audio_chunk, speaker_ids)
+
+    def stream_decode_emoca(self, tokens: torch.Tensor, template: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Codes -> (mesh (B, T, vertice_dim) with the template added, EMOCA
+        (B, T, 56)); the BiLSTM head is bidirectional over the prefix, so a
+        stream re-decodes a trailing window as codes arrive."""
+        mesh, emoca = self.decode_emoca(tokens, from_logits=False)
+        return mesh + template[:, None, :].to(mesh.dtype), emoca
 
 
 class EmocaConverter(nn.Module):

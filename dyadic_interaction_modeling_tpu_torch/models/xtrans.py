@@ -25,8 +25,13 @@ kernels lack (``xtrans.py:54``, ``:101``). A decode step with more query rows
 a cache row than K1 takes (``MAX_NQ``; G = heads / kv_heads, times N in
 ``step_cross``) runs K1 on slices of its rows, which are independent.
 Every other attention (cross-attention, a self-attention with an
-``attn_mask``) is a plain ``torch.matmul`` + softmax, as the JAX package's
-dense path.
+``attn_mask``, the streaming chunk extension ``extend_self``) is a plain
+``torch.matmul`` + softmax, as the JAX package's dense path.
+
+Streaming (``serving/``): ``extend`` runs a chunk causally against KV
+caches (``xtrans.py:274``, ``:417``, ``:565``), and every cached step takes
+its position as an int or as a (B,) tensor of each row's own, which a pool
+of sessions at different lengths gives K1 as a key mask.
 """
 
 from __future__ import annotations
@@ -45,6 +50,13 @@ from ..kernels.decode import MAX_NQ, decode_attention, decode_attention_plain
 
 NEG_INF = float("-inf")
 IGNORE = -100  # the ignore_index of token targets
+
+
+def per_row(t) -> bool:
+    """Whether a step position ``t`` is a (B,) tensor of each row's own
+    position (a pool of sessions at different lengths) rather than one int
+    for the batch."""
+    return isinstance(t, torch.Tensor) and t.dim() == 1
 
 
 def decode_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t=None,
@@ -180,18 +192,64 @@ class XAttention(nn.Module):
         """One causal token against the KV cache, which is updated IN PLACE
         at position ``t`` (the JAX package returns a new cache instead).
 
-        x_t: (B, 1, dim); cache_k/v: (B, KVH, Lmax, Dh); t: int step index.
+        x_t: (B, 1, dim); cache_k/v: (B, KVH, Lmax, Dh); t: int step index,
+        or a (B,) tensor of each row's own index (a pool of sessions at
+        different lengths): then each row's K/V are written at its index and
+        its bound goes to K1 as a (B, Lmax) key mask ``pos <= t[b]``.
         """
         b = x_t.shape[0]
         _, kvh, lmax, dh = cache_k.shape
-        cache_k[:, :, t] = self.to_k(x_t).reshape(b, kvh, dh)
-        cache_v[:, :, t] = self.to_v(x_t).reshape(b, kvh, dh)
+        k_t = self.to_k(x_t).reshape(b, kvh, dh)
+        v_t = self.to_v(x_t).reshape(b, kvh, dh)
+        key_mask = None
+        if per_row(t):
+            rows = torch.arange(b, device=t.device)
+            cache_k[rows, :, t] = k_t
+            cache_v[rows, :, t] = v_t
+            key_mask = torch.arange(lmax, device=t.device)[None, :] <= t[:, None]
+            t = None
+        else:
+            cache_k[:, :, t] = k_t
+            cache_v[:, :, t] = v_t
         # (B, 1, H*Dh) is (B, KVH, G, Dh) row-major: the folded query rows
         q = self.to_q(x_t).reshape(b * kvh, self.group, dh)
         attend = self._step_attention(dh)
         o = attend(q, cache_k.view(b * kvh, lmax, dh), cache_v.view(b * kvh, lmax, dh), t,
-                   scale=self.scale)
+                   key_mask, scale=self.scale)
         return self.to_out(o.reshape(b, 1, self.heads * dh))
+
+    def extend_self(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                    t) -> torch.Tensor:
+        """A causal chunk against the KV cache (streaming prefill,
+        ``xtrans.py:274`` of the JAX package): the chunk's K/V are written IN
+        PLACE at [t, t+C), and its C queries attend causally to cache[:t+C].
+        Equal to rows [t, t+C) of the causal forward over the whole sequence.
+        ``t``: int, or a (B,) tensor of each row's own start. Dense, as in
+        the JAX package: K2 takes no causal window at an offset.
+
+        x: (B, C, dim); cache_k/v: (B, KVH, Lmax, Dh). Returns (B, C, dim).
+        """
+        b, c, _ = x.shape
+        lmax = cache_k.shape[2]
+        q = self._split(self.to_q(x), self.heads)
+        k_c = self._split(self.to_k(x), self.kvh)
+        v_c = self._split(self.to_v(x), self.kvh)
+        steps = torch.arange(c, device=x.device)
+        if per_row(t):
+            qpos = t[:, None] + steps                            # (B, C)
+            rows = torch.arange(b, device=x.device)[:, None]
+            cache_k[rows, :, qpos] = k_c.transpose(1, 2)
+            cache_v[rows, :, qpos] = v_c.transpose(1, 2)
+        else:
+            qpos = (int(t) + steps)[None]                        # (1, C)
+            cache_k[:, :, int(t): int(t) + c] = k_c
+            cache_v[:, :, int(t): int(t) + c] = v_c
+        dots = torch.matmul(self._fold_q(q), cache_k.transpose(-1, -2)).float() * self.scale
+        keep = torch.arange(lmax, device=x.device)[None, None, :] <= qpos[:, :, None]
+        dots = dots.masked_fill(~keep.repeat(1, self.group, 1)[:, None], NEG_INF)
+        attn = torch.softmax(dots, dim=-1)
+        out = torch.matmul(attn.to(cache_v.dtype), cache_v)
+        return self.to_out(self._merge(out, c))
 
     def step_cross(self, x_t: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_mask: Optional[torch.Tensor], groups: int = 1) -> torch.Tensor:
@@ -255,6 +313,17 @@ class EncoderLayers(nn.Module):
             (norm_a,), attn = self.layers[2 * i]
             (norm_f,), ff = self.layers[2 * i + 1]
             x = x + attn(norm_a(x), key_mask=key_mask, attn_mask=attn_mask)
+            x = x + ff(norm_f(x))
+        return self.final_norm(x)
+
+    def extend(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], t) -> torch.Tensor:
+        """A (B, C, dim) chunk causally against per-layer KV caches (the
+        layout of ``init_decoder_cache``), updated in place: rows [t, t+C) of
+        the causal forward over the whole sequence."""
+        for i in range(self.depth):
+            (norm_a,), attn = self.layers[2 * i]
+            (norm_f,), ff = self.layers[2 * i + 1]
+            x = x + attn.extend_self(norm_a(x), cache[f"k_{i}"], cache[f"v_{i}"], t)
             x = x + ff(norm_f(x))
         return self.final_norm(x)
 
@@ -327,25 +396,50 @@ class _Embedding(nn.Module):
 
 
 class ContinuousTransformerWrapper(nn.Module):
-    """project_in -> + learned abs pos emb -> encoder layers -> embeddings.
+    """project_in -> + learned abs pos emb -> encoder layers [-> project_out].
 
-    The ``return_embeddings=True`` use of x-transformers' wrapper, the only
-    one SLMFT makes: there is no ``project_out``, as the JAX package never
-    creates that parameter for such encoders."""
+    Without ``dim_out`` it is the ``return_embeddings=True`` use of
+    x-transformers' wrapper, which the SLM family and the seq2seq encoders
+    make: there is no ``project_out``, as the JAX package never creates that
+    parameter for such encoders. With ``dim_out`` (``ContinuousSeq2Seq``'s
+    decoder) the embeddings go through ``project_out``."""
 
     def __init__(self, dim_in: int, dim: int, max_seq_len: int, depth: int,
-                 heads: int, dim_head: int = 64, kv_heads: Optional[int] = None):
+                 heads: int, dim_head: int = 64, kv_heads: Optional[int] = None,
+                 dim_out: Optional[int] = None):
         super().__init__()
         self.scale = dim ** -0.5
         self.project_in = nn.Linear(dim_in, dim)
         self.pos_emb = _Embedding(max_seq_len, dim)
         self.attn_layers = EncoderLayers(dim, depth, heads, dim_head, kv_heads)
+        if dim_out is not None:
+            self.project_out = nn.Linear(dim, dim_out)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.project_in(x)
         h = h + (self.pos_emb.emb.weight[: h.shape[1]] * self.scale).to(h.dtype)[None]
-        return self.attn_layers(h, key_mask=mask, attn_mask=attn_mask)
+        h = self.attn_layers(h, key_mask=mask, attn_mask=attn_mask)
+        return self.project_out(h) if hasattr(self, "project_out") else h
+
+    def extend(self, x: torch.Tensor, cache: Dict[str, torch.Tensor], t) -> torch.Tensor:
+        """Streaming causal extension (``xtrans.py:565`` of the JAX package):
+        a (B, C, dim_in) chunk whose first frame sits at absolute position
+        ``t`` (an int, or a (B,) tensor of each row's own), against per-layer
+        KV caches updated in place. Returns the embeddings. Valid only for
+        encoders used causally (SLMFT's, under a triangular attn_mask). The
+        positions are the table's rows [t, t+C), the start clamped to the
+        table as ``lax.dynamic_slice`` clamps it."""
+        h = self.project_in(x)
+        c, table = h.shape[1], self.pos_emb.emb.weight
+        if per_row(t):
+            start = t.clamp(max=table.shape[0] - c)
+            pos = table[start[:, None] + torch.arange(c, device=t.device)]
+        else:
+            start = min(int(t), table.shape[0] - c)
+            pos = table[start: start + c][None]
+        h = h + (pos * self.scale).to(h.dtype)
+        return self.attn_layers.extend(h, cache, t)
 
 
 class TokenDecoder(nn.Module):
@@ -364,11 +458,18 @@ class TokenDecoder(nn.Module):
         self.attn_layers = DecoderLayers(dim, depth, heads, dim_head, kv_heads)
         self.to_logits = nn.Linear(dim, num_tokens, bias=False)
 
-    def _embed(self, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, offset=0) -> torch.Tensor:
+        """Token and position embeddings; ``offset`` is an int, or a (B,)
+        tensor of each row's own first position."""
         emb = self.token_emb.emb(tokens.long())
         if hasattr(self, "pos_emb"):
-            pos = self.pos_emb.emb.weight[offset: offset + tokens.shape[1]]
-            emb = emb + (pos * self.scale).to(emb.dtype)[None]
+            table = self.pos_emb.emb.weight
+            if per_row(offset):
+                pos = table[offset[:, None] + torch.arange(tokens.shape[1],
+                                                           device=offset.device)]
+            else:
+                pos = table[offset: offset + tokens.shape[1]][None]
+            emb = emb + (pos * self.scale).to(emb.dtype)
         return emb
 
     def forward(self, tokens, context=None, self_key_mask=None, context_mask=None):
@@ -380,11 +481,12 @@ class TokenDecoder(nn.Module):
     def cross_kv(self, context: torch.Tensor):
         return self.attn_layers.cross_kv(context)
 
-    def decode_step(self, token: torch.Tensor, cache, t: int, cross_kv,
+    def decode_step(self, token: torch.Tensor, cache, t, cross_kv,
                     context_mask: Optional[torch.Tensor] = None,
                     cross_groups: int = 1) -> torch.Tensor:
-        """token (B, 1) at position ``t`` -> logits (B, num_tokens); writes
-        the token's K/V into ``cache`` in place."""
+        """token (B, 1) at position ``t`` (an int, or a (B,) tensor of each
+        row's own, see ``XAttention.step_self``) -> logits (B, num_tokens);
+        writes the token's K/V into ``cache`` in place."""
         h = self._embed(token, t)
         h = self.attn_layers.step(h, cache, t, cross_kv, context_mask, cross_groups)
         return self.to_logits(h)[:, 0]
@@ -448,21 +550,39 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
     return -torch.log(-torch.log(u))
 
 
+def sample_tokens(logits: torch.Tensor, greedy: bool = False, temperature: float = 1.0,
+                  filter_frac: float = 0.1, noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The next tokens from (B, vocab) logits, in fp32: their argmax when
+    ``greedy``, else ``top_k_filter(logits, filter_frac) / temperature``
+    sampled as Gumbel-max (``jax.random.categorical``, ``xtrans.py:700-705``
+    of the JAX package), with the (B, vocab) Gumbel ``noise`` injected or
+    drawn from ``generator``."""
+    lg = logits.float()
+    if greedy:
+        return lg.argmax(dim=-1)
+    filt = top_k_filter(lg, filter_frac) / temperature
+    if noise is None:
+        noise = gumbel_noise(filt.shape, generator, filt.device)
+    return (filt + noise.to(filt.device)).argmax(dim=-1)
+
+
 @torch.no_grad()
 def generate_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
                     context: torch.Tensor, context_mask: Optional[torch.Tensor],
                     generator: Optional[torch.Generator] = None,
                     greedy: bool = False, context_groups: int = 1,
-                    gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    gumbel: Optional[torch.Tensor] = None, temperature: float = 1.0,
+                    filter_frac: float = 0.1) -> torch.Tensor:
     """KV-cached autoregressive sampling: (B, seq_len) generated tokens.
 
     Cross K/V are computed once, then one cached ``decode_step`` per token.
-    Sampling follows the reference defaults: top-k keep-10% filtering,
-    temperature 1.0, categorical sampling as Gumbel-max in fp32. ``gumbel``
-    (seq_len, B, vocab) injects the noise (then ``generator`` is unused), so
-    a sampled stream can be held token-exact against another implementation
-    fed the same noise. ``prompt`` (B, P) is consumed through the cache and
-    not returned.
+    Sampling (``sample_tokens``) follows the reference defaults: top-k
+    keep-``filter_frac`` (10%) filtering, ``temperature`` 1.0, categorical
+    sampling as Gumbel-max in fp32. ``gumbel`` (seq_len, B, vocab) injects
+    the noise (then ``generator`` is unused), so a sampled stream can be held
+    token-exact against another implementation fed the same noise.
+    ``prompt`` (B, P) is consumed through the cache and not returned.
 
     ``context_groups``: best-of-N sharing - ``prompt`` has N*B0 rows
     (sample-major) while ``context`` / ``context_mask`` carry the B0 distinct
@@ -485,14 +605,8 @@ def generate_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
                                      context_groups)
     tokens = torch.empty(b, seq_len, dtype=prompt.dtype, device=device)
     for i in range(seq_len):
-        lg = logits.float()
-        if greedy:
-            tok = lg.argmax(dim=-1)
-        else:
-            filt = top_k_filter(lg)
-            noise = (gumbel[i].to(device) if gumbel is not None
-                     else gumbel_noise(filt.shape, generator, device))
-            tok = (filt + noise).argmax(dim=-1)
+        tok = sample_tokens(logits, greedy, temperature, filter_frac,
+                            None if gumbel is None else gumbel[i], generator)
         tokens[:, i] = tok.to(prompt.dtype)
         if i + 1 < seq_len:  # the last token's logits would go unused
             logits = decoder.decode_step(tokens[:, i: i + 1], cache, p + i, cross,

@@ -3,8 +3,10 @@
 Adapted from ``dyadic_interaction_modeling_tpu/utils/torch_export.py``
 (``flax_vq_to_torch`` :140, ``flax_vq_speaker_to_torch`` :163,
 ``flax_slm_to_torch`` :260, with its SpeakerSLMFT and EmocaConverter heads
-:236-299). The inputs are the
-flax trees as nested mappings of numpy arrays; no JAX is imported.
+:236-299, ``flax_listener_generator_to_torch`` :302), plus the seq2seq
+listener path's ``ContinuousSeq2Seq`` and ``SimpleLSTM``, which the JAX
+package does not export. The inputs are the flax trees as nested mappings of
+numpy arrays; no JAX is imported.
 
 Layout notes:
 
@@ -255,4 +257,50 @@ def jax_converter_to_state_dict(params, vq_cfg) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     _vq(sd, p["speaker_vq"], vq_cfg, prefix="speaker_vq.")
     _converter_heads(sd, p)
+    return _to_torch(sd)
+
+
+def jax_listener_generator_to_state_dict(params, cfg, vq_cfg_speaker, vq_cfg_listener
+                                         ) -> Dict[str, torch.Tensor]:
+    """``models.listener_generator.ListenerGenerator`` params -> the port's
+    ``ListenerGenerator`` state_dict, in the reference's ``seq2seq.py:138-236``
+    layout (``flax_listener_generator_to_torch``, torch_export.py:302):
+    ``speaker_vq.``, ``listener_vq.``, ``generator.encoder.``,
+    ``generator.decoder.net.`` and, when the tree has them, the id
+    embeddings and ``fc_speaker`` / ``fc_listener``."""
+    p = _unwrap(params)
+    sd: Dict[str, np.ndarray] = {}
+    for vq, vq_cfg in (("speaker_vq", vq_cfg_speaker), ("listener_vq", vq_cfg_listener)):
+        if vq in p:
+            _vq(sd, p[vq], vq_cfg, prefix=f"{vq}.")
+    gen = p["generator"]
+    _xt_continuous(sd, "generator.encoder", gen["encoder"], cfg.enc_depth, cfg.dim)
+    _xt_token_decoder(sd, "generator.decoder.net", gen["decoder"], cfg.dec_depth, cfg.dim)
+    for emb in ("speaker_embeddings", "listener_embeddings"):
+        if emb in p:
+            sd[f"{emb}.weight"] = _np(p[emb]["embedding"])
+    for fc in ("fc_speaker", "fc_listener"):
+        if fc in p:
+            _dense(sd, fc, p[fc])
+    return _to_torch(sd)
+
+
+def jax_continuous_seq2seq_to_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
+    """``models.listener_generator.ContinuousSeq2Seq`` params -> the port's
+    ``ContinuousSeq2Seq`` state_dict: ``encoder.`` and ``decoder.`` as
+    x-transformers' ``ContinuousTransformerWrapper`` (the decoder with its
+    ``project_out``)."""
+    p = _unwrap(params)
+    sd: Dict[str, np.ndarray] = {}
+    _xt_continuous(sd, "encoder", p["encoder"], cfg.enc_depth, cfg.dim)
+    _xt_continuous(sd, "decoder", p["decoder"], cfg.dec_depth, cfg.dim)
+    return _to_torch(sd)
+
+
+def jax_simple_lstm_to_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``models.listener_generator.SimpleLSTM`` params -> the port's
+    ``SimpleLSTM`` state_dict: the LSTM's torch-named leaves and ``fc``."""
+    p = _unwrap(params)
+    sd = {f"model.{k}": _np(v) for k, v in p["model"].items()}
+    _dense(sd, "fc", p["fc"])
     return _to_torch(sd)
