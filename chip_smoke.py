@@ -7,8 +7,11 @@ width, then the four CLI twins on files in the reference's layout, then the
 BIWI speaker family (SpeakerSLMFT best-of-50 generation, the test_biwi twin,
 its finetune step, the converter's training twin), then the seq2seq
 ListenerGenerator path (its training step, the test_s2s loop, the
-train_s2s / test_s2s twins on files) and the streaming serving sessions
-(listener session, session pool, speaker session), and time it all.
+train_s2s / test_s2s twins on files), the streaming serving sessions
+(listener session, session pool, speaker session), then the speech path
+(the wav2vec2 / HuBERT trunk, CodeTalker's training step and predict,
+train_stage2 and test_biwi --data-root on BIWI files, the streaming audio
+front-end), and time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -171,7 +174,34 @@ line):
     against ``make_speaker_generator`` greedy (the first divergence), its
     ``mesh`` against the offline decode of the same codes (1e-4)
     (``speaker_streaming_path``);
-24. the VQ attention at D = 48 and 96 by both routes (``attend`` and
+24. the wav2vec2-base trunk (7 conv layers of 512; 12 layers of 768, 12
+    heads, FF 3072), seeded, fp32, over 4 BIWI-length waveforms of 77,200
+    samples (241 conv frames, 120 motion frames after the trim): the card's
+    features within 1e-4 of the CPU's on the same weights, and a clip's
+    median ms (``speech_trunk_path``);
+25. CodeTalker's training step at full width (``codetalker_defaults()``:
+    feature_dim 1024, 6 decoder layers of 4 heads; the vertex VQ at
+    70110-d; that trunk), fp32, B = 1, L = 120, Adam 1e-4 with
+    ``CODETALKER_FROZEN``: 3 warmup steps, then 10 each between its own
+    CUDA events with every launch count set to 0 just before it and read
+    just after (K4 2, no K1/K2/K3), frozen tensors bitwise unchanged, every
+    trainable one the loss reaches moved, 3 steps traced; then one loss
+    from the trained weights with K4 and with its plain version (equal
+    codes, losses within 1e-5 relative, gradients within 1e-3 of each
+    leaf's largest magnitude, ``k4_on_path``) (``codetalker_train_path``);
+26. ``CodeTalker.predict`` of one clip of 120 frames: K4 120, codes equal
+    to the plain version's run, motion within 1e-4; the median of 3 calls,
+    and K4 alone at (120, 128) (``codetalker_predict_path``);
+27. ``cli.train_stage2`` (2 epochs, K4 8) and ``cli.test_biwi
+    --data-root`` with the port's HuBERT extractor (a clip: K2 4, K4 2;
+    twice, bitwise-equal predictions) on a ``write_biwi`` tree of 23,370
+    vertices, 120 frames and 77,200 samples a clip; the extractor on the
+    card against the CPU's within 1e-4 (``speech_files_path``);
+28. ``StreamingAudioFrontend`` on the HuBERT-base trunk, batch 4, fps 30,
+    chunk 8, window 60, lookahead 2, over 4 s pushed in irregular pieces:
+    emissions bitwise equal to one whole push's; the median ms to emit a
+    chunk (``audio_frontend_path``);
+29. the VQ attention at D = 48 and 96 by both routes (``attend`` and
     K2/K3), forward and backward, graph-timed at L = 256, 512, 768 and 1024
     in fp32 and bf16; then the ``kernels`` JSON line and, last, the device
     JSON line.
@@ -314,15 +344,17 @@ def plain_attention():
 
 
 @contextlib.contextmanager
-def k4_calls():
+def k4_calls(plain=False):
     """Inside, every K4 launch of the model (``ops.quantizer``'s) is recorded
     as (latents, codebook, codes), so that the codes a path took can be held
-    against the plain version on the same latents afterwards."""
+    against the plain version on the same latents afterwards; with
+    ``plain``, the plain version runs in K4's place on the card."""
     from unittest import mock
 
+    from dyadic_interaction_modeling_tpu_torch.kernels.vq import nearest_code_plain
     from dyadic_interaction_modeling_tpu_torch.ops import quantizer
 
-    calls, kernel = [], quantizer._nearest_code
+    calls, kernel = [], nearest_code_plain if plain else quantizer._nearest_code
 
     def record(z, e):
         idx = kernel(z, e)
@@ -350,6 +382,8 @@ def k4_on_path(calls, what):
         worst = max(worst, float(gap[diff].max()) if bool(diff.any()) else 0.0)
         rows, differ = rows + got.numel(), differ + int(diff.sum())
     shapes = sorted({(tuple(z.shape), tuple(e.shape)) for z, e, _ in calls})
+    if len(shapes) > 4:  # a growing prefix: the first and the last
+        shapes = f"{len(shapes)} shapes, {shapes[0]} to {shapes[-1]}"
     check(bool(calls) and worst <= 1e-5 and differ <= rows // 1000,
           f"K4 on {what}'s own latents ({len(calls)} launches at {shapes}): "
           f"{rows - differ} of {rows} codes equal to the plain version's, the others "
@@ -2630,6 +2664,382 @@ def speaker_streaming_path():
             "mesh_err": err}
 
 
+# --- the speech path (wav2vec2 / HuBERT trunk, CodeTalker) at full width ---
+
+SPEECH_SAMPLES, SPEECH_CLIPS = 77200, 4  # 241 conv frames: BIWI_L frames after the trim
+CT_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                    "nearest_code": 2}
+
+
+def _speech_audio(n, seed):
+    """n waveforms of SPEECH_SAMPLES (4.825 s at 16 kHz), on the CPU."""
+    return torch.randn(n, SPEECH_SAMPLES, generator=torch.Generator().manual_seed(seed))
+
+
+@phase
+def speech_trunk_path():
+    """The wav2vec2-base trunk (7 conv layers of 512, 12 layers of 768 with 12
+    heads, FF 3072), seeded random weights, fp32, over SPEECH_CLIPS BIWI-length
+    waveforms: (4, 2 * BIWI_L, 768) features on the card within 1e-4 of the
+    CPU's largest magnitude on the same weights; the median ms of one clip
+    (CUDA events, 10 calls)."""
+    from dyadic_interaction_modeling_tpu_torch.models.wav2vec2 import Wav2Vec2Model
+
+    torch.manual_seed(0)
+    model = Wav2Vec2Model().eval()
+    audio = _speech_audio(SPEECH_CLIPS, seed=31)
+    with torch.no_grad():
+        ref = model(audio, "BIWI", frame_num=BIWI_L)
+        model = model.to("cuda")
+        a = audio.to("cuda")
+        out = model(a, "BIWI", frame_num=BIWI_L).cpu()
+        err = float((out - ref).abs().max() / ref.abs().max())
+        check(tuple(out.shape) == (SPEECH_CLIPS, 2 * BIWI_L, 768) and err <= 1e-4,
+              f"wav2vec2 trunk {tuple(out.shape)} on the card vs the CPU: {err:.3g} of the "
+              "largest magnitude (tol 1e-4)")
+        ms = cuda_ms(lambda i: model(a[i % SPEECH_CLIPS: i % SPEECH_CLIPS + 1], "BIWI",
+                                     frame_num=BIWI_L), 10)
+    say(f"wav2vec2 trunk, one clip of {SPEECH_SAMPLES} samples fp32, {CARD[-1]}: median "
+        f"{ms:.2f} ms (CUDA events)")
+    return {"rel_err": err, "ms_per_clip": ms}
+
+
+def _codetalker(seed):
+    """CodeTalker at full width (codetalker_defaults: feature_dim 1024, 6
+    decoder layers of 4 heads; the vertex VQ at 70110-d: hidden 384, 6 + 6
+    layers, 512 x 128 codes; the wav2vec2-base trunk), fp32, seeded."""
+    from dyadic_interaction_modeling_tpu_torch.config import codetalker_defaults
+    from dyadic_interaction_modeling_tpu_torch.models.codetalker import CodeTalker
+
+    torch.manual_seed(seed)
+    return CodeTalker(codetalker_defaults())
+
+
+def _ct_batch(seed):
+    """One BIWI clip on the card: (1, SPEECH_SAMPLES) audio, (1, 70110)
+    template, (1, BIWI_L, 70110) vertices, (1, 6) one-hot."""
+    from dyadic_interaction_modeling_tpu_torch.data.synthetic import synthetic_biwi_dataset
+
+    item = synthetic_biwi_dataset(n_clips=1, length=BIWI_L, n_vertices=BIWI_VDIM // 3,
+                                  seed=seed)[0][0]
+    one_hot = torch.zeros(1, 6)
+    one_hot[0, seed % 6] = 1
+    return tuple(torch.as_tensor(x).to("cuda") for x in (
+        _speech_audio(1, seed), item["template"][None], item["vertice"][None], one_hot))
+
+
+def _key_bias(name, n):
+    """The slice of a key bias in the tensor ``name`` of length ``n`` (None
+    if it holds none): its gradient is zero but for rounding, since it
+    shifts every score of a row alike."""
+    if name.endswith("k_proj.bias"):
+        return slice(0, n)
+    if name.endswith("in_proj_bias"):
+        return slice(n // 3, 2 * n // 3)
+    return None
+
+
+def _ct_grads(state, batch, plain):
+    """One CodeTalker loss from ``state`` with K4 or its plain version:
+    (losses, trainable gradients but for their key biases, K4 calls)."""
+    from dyadic_interaction_modeling_tpu_torch.models.codetalker import CODETALKER_FROZEN
+
+    model = _codetalker(seed=0)
+    model.load_state_dict(state)
+    model = model.to("cuda")
+    for k, p in model.named_parameters():
+        p.requires_grad_(not k.startswith(CODETALKER_FROZEN))
+    with k4_calls(plain=plain) as calls:
+        total, (motion, reg) = model(*batch)
+        total.backward()
+    grads = {}
+    for k, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        kb = _key_bias(k, len(p))
+        if kb is None:
+            grads[k] = p.grad.double()
+        elif kb.start > 0:
+            grads[k] = torch.cat([p.grad[: kb.start], p.grad[kb.stop:]]).double()
+    logs = {k: float(v.detach()) for k, v in (("loss", total), ("motion", motion), ("reg", reg))}
+    return logs, grads, calls
+
+
+@phase
+def codetalker_train_path():
+    """The CodeTalker training step at full width, fp32, B = 1, L = BIWI_L,
+    Adam 1e-4 (``train_stage2``'s step and frozen parts): 3 warmup steps,
+    then 10 each between its own pair of CUDA events with every launch count
+    set to 0 just before it and read just after (K4 2: the ground truth's
+    encode and the prediction's quantize; no K1/K2/K3), frozen parameters
+    bitwise unchanged and every trainable one the loss reaches moved, 3
+    steps traced. Then, from the trained weights (``feat_map`` moved from
+    its zero init), one loss with K4 and one with its plain version: equal
+    codes, losses within 1e-5 relative, gradients within 1e-3 of each leaf's
+    largest magnitude, and K4 on that step's latents (``k4_on_path``)."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli.train_stage2 import make_stage2_step
+    from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
+    from dyadic_interaction_modeling_tpu_torch.models.codetalker import CODETALKER_FROZEN
+
+    model = _codetalker(seed=0).to("cuda").train()
+    step = make_stage2_step(model, make_optimizer(model, 1e-4, 0.0, CODETALKER_FROZEN))
+    batch = _ct_batch(seed=41)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    logs = [step(*batch) for _ in range(WARMUP_STEPS)]
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(TRAIN_STEPS)]
+    per_step = []
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        kernels.reset_launch_counts()
+        start.record()
+        logs.append(step(*batch))
+        end.record()
+        per_step.append(dict(kernels.LAUNCHES))
+    torch.cuda.synchronize()
+    times = [start.elapsed_time(end) for start, end in pairs]
+    launches = {k: sum(s[k] for s in per_step) for k in per_step[0]}
+    say(f"launches in each of {TRAIN_STEPS} CodeTalker steps: {per_step[0]}; in all: {launches}")
+    check(all(s == CT_STEP_LAUNCHES for s in per_step),
+          f"every CodeTalker step launches {CT_STEP_LAUNCHES}")
+    check(all(bool(torch.isfinite(v).all()) for lg in logs for v in lg.values()),
+          f"CodeTalker losses finite over {len(logs)} steps")
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    check(bool(frozen) and all(k.startswith(CODETALKER_FROZEN) for k in frozen)
+          and all(torch.equal(model.get_parameter(k), before[k]) for k in frozen),
+          f"{len(frozen)} frozen CodeTalker tensors (conv extractor, vertex VQ) bitwise "
+          "unchanged")
+    reached = [k for k, p in model.named_parameters() if p.grad is not None]
+    still = []
+    for k in reached:
+        p, b, kb = model.get_parameter(k).detach(), before[k], _key_bias(k, before[k].numel())
+        if kb is not None:  # left out: see _key_bias
+            p, b = (torch.cat([x[: kb.start], x[kb.stop:]]) for x in (p, b))
+        if p.numel() and torch.equal(p, b):
+            still.append(k)
+    check(len(reached) > 100 and not still, f"all {len(reached)} trainable tensors the loss "
+          f"reaches moved, their key biases left out (unmoved: {still[:5]})")
+    med = statistics.median(times)
+    say(f"CodeTalker step B=1 L={BIWI_L} fp32, {CARD[-1]}, CUDA events: median {med:.2f} ms of "
+        f"{[round(t, 2) for t in times]} -> {BIWI_L / med * 1e3:.0f} frames/s")
+    say(f"losses of the first warmup step {_rounded(logs[0])}; of the last {_rounded(logs[-1])}")
+    windows, top = _trace_steps(step, batch, "CodeTalker training")
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, step
+    torch.cuda.empty_cache()
+
+    (lk, gk, ck), (lp, gp, cp) = (_ct_grads(state, batch, plain) for plain in (False, True))
+    check(len(ck) == len(cp) == 2 and all(torch.equal(a[2], b[2]) for a, b in zip(ck, cp)),
+          f"CodeTalker codes equal with K4 and with its plain version "
+          f"({[int(c[2].numel()) for c in ck]} codes, "
+          f"{len(torch.unique(ck[1][2]))} distinct in the prediction's)")
+    k4 = k4_on_path(ck, "the CodeTalker training step")
+    rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp}
+    check(max(rel.values()) <= 1e-5, f"fp32 CodeTalker losses, K4 vs plain: rel err "
+          f"{max(rel.values()):.3g} (tol 1e-5): {lk}")
+    errs = _grad_errs(gk, gp)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= 1e-3, f"gradients of {len(errs)} trainable CodeTalker leaves within "
+          f"1e-3 of each leaf's max, K4 vs plain: worst {errs[worst]:.3g} ({worst})")
+    return {"launches": launches, "step_ms": med, "step_runs_ms": times, "windows": windows,
+            "top": [(n, t / 1e3, c) for n, t, c in top], "losses_first": _rounded(logs[0]),
+            "losses_last": _rounded(logs[-1]), "loss_rel": max(rel.values()),
+            "grad_rel": errs[worst], "grad_rel_leaf": worst, "k4": k4, "state": state}
+
+
+@phase
+def codetalker_predict_path(train):
+    """``CodeTalker.predict`` on one clip of BIWI_L frames from the trained
+    weights, with every launch count set to 0 just before and read just
+    after (K4 once a frame: BIWI_L, no K1/K2/K3): every frame's codes equal
+    to those of a run on the plain version and its motion within 1e-4 of
+    that run's largest magnitude, K4 on its own latents; then the median ms of 3 calls (host
+    clock, synchronized), and K4 alone at the last frame's (120, 128) x
+    (512, 128)."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.kernels.vq import nearest_code, nearest_code_plain
+
+    model = _codetalker(seed=0)
+    model.load_state_dict(train["state"])
+    model = model.to("cuda").eval()
+    audio, template, _, one_hot = _ct_batch(seed=43)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with k4_calls() as calls:
+        motion = model.predict(audio, template, one_hot)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    say(f"launches of a CodeTalker predict of {BIWI_L} frames: {launches}")
+    check(launches == {**CT_STEP_LAUNCHES, "nearest_code": BIWI_L},
+          f"CodeTalker predict launches K4 once a frame ({BIWI_L}), no K1/K2/K3")
+    k4 = k4_on_path(calls, "CodeTalker predict")
+    with k4_calls(plain=True) as plain_calls:
+        ref = model.predict(audio, template, one_hot)
+    err = float((motion - ref).abs().max() / ref.abs().max())
+    same = len(calls) == len(plain_calls) and all(
+        torch.equal(a[2], b[2]) for a, b in zip(calls, plain_calls))
+    check(same and tuple(motion.shape) == (1, BIWI_L, BIWI_VDIM) and err <= 1e-4,
+          f"CodeTalker predict {tuple(motion.shape)}: every frame's codes equal to the plain "
+          f"version's run ({len(torch.unique(calls[-1][2]))} distinct at the end), motion "
+          f"within {err:.3g} of its largest magnitude (tol 1e-4)")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.predict(audio, template, one_hot)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    say(f"CodeTalker predict, one clip of {BIWI_L} frames fp32, {CARD[-1]}: median {med:.1f} ms "
+        f"of {[round(t, 1) for t in times]} -> {BIWI_L / med * 1e3:.0f} frames/s")
+    z, e = calls[-1][0], calls[-1][1]
+    k4_time = dict(ms=cuda_ms(lambda i: nearest_code(z, e), 200),
+                   plain_ms=cuda_ms(lambda i: nearest_code_plain(z, e), 200), library_ms=None)
+    n = z.shape[0]
+    k4_time["bound_ms"], k4_time["bound_by"] = bound_ms(n * 128 * 4 + 512 * 128 * 4 + n * 4,
+                                                        2 * n * 512 * 128, torch.float32)
+    say(f"K4 at ({n},128) x (512,128) fp32: kernel {k4_time['ms'] * 1e3:.2f} us, plain "
+        f"{k4_time['plain_ms'] * 1e3:.2f} us, bound {k4_time['bound_ms'] * 1e3:.3f} us")
+    return {"launches": launches, "ms": med, "runs_ms": times, "motion_rel_err": err,
+            "k4": k4, "k4_time": k4_time}
+
+
+SPEECH_TRAIN_CLIPS = [("F2", 1), ("M3", 2)]
+SPEECH_TEST_CLIPS = [("F1", 37), ("M1", 38)]
+
+
+@phase
+def speech_files_path():
+    """The two speech CLIs' ``main()`` on a ``write_biwi`` tree in a temporary
+    directory (23,370 vertices, BIWI_L frames and SPEECH_SAMPLES samples a
+    clip): ``train_stage2`` for 2 epochs on the training split's 2 clips
+    (K4 2 a step: 8), then ``test_biwi --data-root`` on the test split's 2
+    clips with the port's HuBERT extractor on the card (K2 4 and K4 2 a
+    clip) and the mouth and upper-face maps, twice: bitwise-equal
+    predictions. The extractor on the card against the CPU's on the same
+    weights: within 1e-4 of the largest magnitude."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import test_biwi, train_stage2
+    from dyadic_interaction_modeling_tpu_torch.data.datasets import load_wav_16k
+    from dyadic_interaction_modeling_tpu_torch.data.reference_files import write_biwi
+    from dyadic_interaction_modeling_tpu_torch.models.hubert import make_hubert_extractor
+
+    root = tempfile.mkdtemp(prefix="speech_files_")
+    try:
+        data = os.path.join(root, "BIWI")
+        write_biwi(data, SPEECH_TRAIN_CLIPS + SPEECH_TEST_CLIPS, n_frames=BIWI_L,
+                   n_vertices=BIWI_VDIM // 3, wav_samples=SPEECH_SAMPLES)
+        runs = {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, out = _stdout_of(train_stage2.main, ["--data-root", data, "--epochs", "2",
+                                                 "--save-path", os.path.join(root, "stage2")])
+        torch.cuda.synchronize()
+        runs["train_stage2"] = {"launches": dict(kernels.LAUNCHES),
+                                "s": time.perf_counter() - t0}
+        losses = [float(line.split("loss ")[1].split()[0]) for line in out.splitlines()
+                  if "(motion" in line]
+        want = {**CT_STEP_LAUNCHES, "nearest_code": 2 * 2 * len(SPEECH_TRAIN_CLIPS)}
+        check(rc == 0 and runs["train_stage2"]["launches"] == want and len(losses) == 2
+              and all(x == x and abs(x) != float("inf") for x in losses),
+              f"train_stage2 on BIWI files: exit {rc}, launches "
+              f"{runs['train_stage2']['launches']} (want {want}), epoch losses {losses}")
+        regions = []
+        for name, idx in (("lve.txt", BIWI_MOUTH), ("fdd.txt", range(BIWI_VDIM // 6,
+                                                                     BIWI_VDIM // 3))):
+            regions.append(os.path.join(root, name))
+            with open(regions[-1], "w") as f:
+                f.write(", ".join(str(i) for i in idx))
+        argv = ["--data-root", data, "--vertice-dim", str(BIWI_VDIM), "--mouth-map", regions[0],
+                "--upper-map", regions[1]]
+        preds = []
+        for run in ("a", "b"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc, out = _stdout_of(test_biwi.main, argv + ["--out-dir", os.path.join(root, run)])
+            torch.cuda.synchronize()
+            if run == "a":
+                runs["test_biwi_data_root"] = {"launches": dict(kernels.LAUNCHES),
+                                               "s": time.perf_counter() - t0}
+                lve, fdd = (float(x) for x in out.split("LVE ")[1].split()[::2][:2])
+            files = sorted(os.listdir(os.path.join(root, run, "pred")))
+            preds.append({f: np.load(os.path.join(root, run, "pred", f)) for f in files})
+        n = len(SPEECH_TEST_CLIPS)
+        want = {"decode_attention": 0, "flash_attention_fwd": 4 * n, "flash_attention_bwd": 0,
+                "nearest_code": 2 * n}
+        check(rc == 0 and runs["test_biwi_data_root"]["launches"] == want,
+              f"test_biwi --data-root: exit {rc}, launches "
+              f"{runs['test_biwi_data_root']['launches']} (want {want}: a clip K2 4, K4 2)")
+        check(len(preds[0]) == n and all(p.shape == (BIWI_L - 1, 56) for p in preds[0].values())
+              and all(v == v and abs(v) != float("inf") for v in (lve, fdd)),
+              f"test_biwi --data-root wrote {len(preds[0])} predictions of ({BIWI_L - 1}, 56); "
+              f"LVE {lve:.6e} FDD {fdd:.6e}")
+        check(preds[0].keys() == preds[1].keys()
+              and all(np.array_equal(preds[0][f], preds[1][f]) for f in preds[0]),
+              "two test_biwi --data-root runs give bitwise-equal predictions")
+        wav = load_wav_16k(os.path.join(data, "wav", "F1_37.wav"))
+        on_card = make_hubert_extractor(device="cuda")[0](wav)
+        on_cpu = make_hubert_extractor(device="cpu")[0](wav)
+        err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+        check(on_card.shape == (2 * BIWI_L + 1, 768) and err <= 1e-4,
+              f"HuBERT extractor {on_card.shape} on the card vs the CPU: {err:.3g} of the "
+              "largest magnitude (tol 1e-4)")
+        return {"runs": runs, "losses": losses, "lve": lve, "fdd": fdd, "extractor_rel": err}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+@phase
+def audio_frontend_path():
+    """``StreamingAudioFrontend`` on the HuBERT-base trunk on the card, fp32:
+    batch 4, fps 30, chunk 8, window 60, lookahead 2, over 4 s of audio pushed
+    in irregular pieces, against one whole push: bitwise-equal emissions.
+    Then the median ms of a push that completes one chunk (host clock,
+    synchronized)."""
+    from dyadic_interaction_modeling_tpu_torch.models.hubert import HubertModel
+    from dyadic_interaction_modeling_tpu_torch.serving import StreamingAudioFrontend
+
+    torch.manual_seed(0)
+    model = HubertModel().to("cuda").eval()
+    kw = dict(fps=30, chunk=8, window_frames=60, lookahead=2, batch=4)
+    wave = torch.randn(4, 4 * 16000, generator=torch.Generator().manual_seed(51)).numpy()
+    whole = StreamingAudioFrontend(model, **kw).push(wave)
+    fe, outs, at = StreamingAudioFrontend(model, **kw), [], 0
+    for n in itertools.cycle((1601, 37, 5000, 12345, 999)):
+        got = fe.push(wave[:, at: at + n])
+        if got is not None:
+            outs.append(got)
+        at += n
+        if at >= wave.shape[1]:
+            break
+    pieces = torch.cat(outs, dim=1)
+    diff = float((pieces - whole).abs().max()) if pieces.shape == whole.shape else None
+    check(tuple(whole.shape) == (4, fe.frames_emitted, 768) and diff == 0.0,
+          f"streaming audio front-end: {tuple(whole.shape)} emissions, irregular pushes vs one "
+          f"push: max difference {diff} (bitwise equal wanted)")
+    chunk = fe._boundary(8)  # about one chunk of samples a push
+    g = torch.Generator().manual_seed(52)
+    times = []
+    while len(times) < 10:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fe.push(torch.randn(4, chunk, generator=g).numpy())
+        torch.cuda.synchronize()
+        if got is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    say(f"audio front-end, batch 4, a window of 60 frames: median {med:.2f} ms to emit a chunk "
+        f"of 8 frames ({CARD[-1]}; host clock, synchronized)")
+    return {"frames_emitted": int(whole.shape[1]), "max_diff": diff, "chunk_ms": med,
+            "chunk_runs_ms": times}
+
+
 @phase
 def vq_attention_routes():
     """The VQ attention by both routes, forward and backward, graph-timed
@@ -2775,7 +3185,7 @@ def _flash_entry(name, line, which, tt, k23, by_path):
 
 
 def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k4, k1, k23,
-                 t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s):
+                 t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s, speech):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
@@ -2796,7 +3206,11 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
                 for name, r in s2s["generate"]["twins"].items()},
              f"streaming_session_{STREAM_ROUNDS}_rounds": s2s["streaming"]["launches"],
              f"pool_{POOL_ROUNDS}_rounds": s2s["pool"]["launches"],
-             "speaker_streaming_session": s2s["speaker_streaming"]["launches"]}
+             "speaker_streaming_session": s2s["speaker_streaming"]["launches"],
+             f"codetalker_train_{TRAIN_STEPS}_steps": speech["train"]["launches"],
+             f"codetalker_predict_{BIWI_L}_frames": speech["predict"]["launches"],
+             **{f"speech_files_{name}": r["launches"]
+                for name, r in speech["files"]["runs"].items()}}
 
     def by_path(name, generate=None):
         out = {} if generate is None else generate
@@ -2837,7 +3251,9 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
          "max_abs_err": k4["max_abs_err"], **t["vq"], "agree": k4["agree"],
          "cases": {"(6400,128) x (512,128) fp32 (generate)": t["vq"],
                    "(1024,128) x (512,128) fp32 (VQ training, finetune)": t["vq_1024"],
-                   "(8192,128) x (512,128) fp32 (speaker VQ training)": t["vq_8192"]},
+                   "(8192,128) x (512,128) fp32 (speaker VQ training)": t["vq_8192"],
+                   f"({BIWI_L},128) x (512,128) fp32 (CodeTalker training; predict's last "
+                   "frame)": speech["predict"]["k4_time"]},
          "on_path_latents": {path: r["k4"] for path, r in refs.items()}},
     ], "generate_ms": t["generate_ms"], "generate_runs_ms": t["generate_runs_ms"],
         "train_step_ms": train["step_ms"], "train_step_runs_ms": train["step_runs_ms"],
@@ -2888,7 +3304,20 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
         "streaming": {k: v for k, v in s2s["streaming"].items() if k != "launches"},
         "pool": {k: v for k, v in s2s["pool"].items() if k != "launches"},
         "speaker_streaming": {k: v for k, v in s2s["speaker_streaming"].items()
-                              if k != "launches"}}
+                              if k != "launches"},
+        "speech_trunk_ms_per_clip": speech["trunk"]["ms_per_clip"],
+        "speech_trunk_rel_err": speech["trunk"]["rel_err"],
+        "codetalker_train_step_ms": speech["train"]["step_ms"],
+        "codetalker_train_step_runs_ms": speech["train"]["step_runs_ms"],
+        "codetalker_train_frames_per_s": BIWI_L / speech["train"]["step_ms"] * 1e3,
+        "codetalker_train_busy_share": speech["train"]["windows"]["card"]["busy_share"],
+        "codetalker_train_traced_windows": speech["train"]["windows"],
+        "codetalker_train_reference": {k: speech["train"][k] for k in (
+            "loss_rel", "grad_rel", "grad_rel_leaf", "losses_first", "losses_last")},
+        "codetalker_predict_ms": speech["predict"]["ms"],
+        "codetalker_predict_runs_ms": speech["predict"]["runs_ms"],
+        "codetalker_predict_motion_rel_err": speech["predict"]["motion_rel_err"],
+        "speech_files": speech["files"], "audio_frontend": speech["frontend"]}
 
 
 def main() -> int:
@@ -2951,18 +3380,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     s2s["speaker_streaming"] = speaker_streaming_path()
     torch.cuda.empty_cache()
+    speech = {"trunk": speech_trunk_path()}
+    torch.cuda.empty_cache()
+    speech["train"] = codetalker_train_path()
+    torch.cuda.empty_cache()
+    speech["predict"] = codetalker_predict_path(speech["train"]) if speech["train"] else None
+    if speech["train"]:
+        del speech["train"]["state"]
+    torch.cuda.empty_cache()
+    speech["files"] = speech_files_path()
+    torch.cuda.empty_cache()
+    speech["frontend"] = audio_frontend_path()
+    torch.cuda.empty_cache()
     routes = vq_attention_routes()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_wide, mqa_ref,
                             mqa_wide_ref, train, train_ref, tt, vq, vq_ref, ft, ft_ref,
-                            ft64, spk, spk_ref, rf, routes, *biwi.values(), *s2s.values()):
+                            ft64, spk, spk_ref, rf, routes, *biwi.values(), *s2s.values(),
+                            *speech.values()):
         say(f"FAILED: {FAILURES}")
         return 1
     refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
             "speaker_vq_train": spk_ref, "speaker_finetune": biwi["finetune"],
-            "s2s_train": s2s["train_ref"]}
+            "s2s_train": s2s["train_ref"], "codetalker_train": speech["train"],
+            "codetalker_predict": speech["predict"]}
     say(json.dumps(kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf,
                                 k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi,
-                                s2s)))
+                                s2s, speech)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

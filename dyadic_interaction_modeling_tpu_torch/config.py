@@ -3,7 +3,7 @@
 A copy of the parts of ``dyadic_interaction_modeling_tpu/config.py`` that the
 port's CLIs need (``CfgNode``, ``load_cfg_from_cfg_file``, ``slm_defaults``,
 ``vq_listener_defaults``, ``vq_speaker_defaults``,
-``listener_generator_defaults``, the ``KEY VALUE`` override
+``listener_generator_defaults``, ``codetalker_defaults``, the ``KEY VALUE`` override
 merge) plus the ``vq_cfg_for`` rule of ``cli/common.py`` and the seq2seq
 CLIs' VQ rule (``lg_vq_cfg``). The port keeps its
 own copy so it never imports the JAX package.
@@ -170,6 +170,27 @@ def listener_generator_defaults() -> CfgNode:
         epochs=10,
         dtype="float32",
     ))
+
+
+def codetalker_defaults() -> CfgNode:
+    """Stage-2 CodeTalker (reference code/models/stage2.py + BIWI config),
+    ``config.py:296-315`` of the JAX package: the vertex VQ's motion dim is
+    the mesh's, so ``in_dim == vertice_dim``."""
+    cfg = vq_listener_defaults()
+    cfg.update(dict(
+        arch="stage2",
+        dataset="BIWI",
+        feature_dim=1024,
+        vertice_dim=70110,
+        in_dim=70110,
+        n_head=4,
+        num_layers=6,
+        period=25,
+        train_subjects="F2 F3 F4 M3 M4 M5",
+        motion_weight=1.0,
+        reg_weight=1.0,
+    ))
+    return cfg
 
 
 def vq_cfg_for(slm_cfg, synthetic: bool = False) -> CfgNode:

@@ -19,6 +19,10 @@ A copy of the ViCo and CANDOR readers of
   ``vertices_npy/``, ``emoca_biwi/*.pkl`` and ``templates.pkl``; a clip that
   fails to read is skipped; split by subject and sentence, val equal to
   test (sentences 37-40); audio features interpolated to the vertex frames.
+* ``BiwiDataset`` (JAX ``:366-447``, the reference's
+  ``data_loader.py:14-42, 247-307``): the stage-2 (CodeTalker) reader of the
+  same tree without EMOCA, split by ``BIWI_SPLITS``; with ``read_audio`` the
+  raw 16 kHz waveform, normalized as HF's ``Wav2Vec2Processor`` does.
 
 The JAX package reads ``RLD_data.csv`` with pandas; the port declares torch,
 numpy and scipy only, so ``read_csv_rows`` reads it with the ``csv`` module
@@ -388,6 +392,88 @@ def read_biwi_emoca_data(data_root: str, hubert_extractor=None, *,
             if subject_id in subjects[part] and sentence_id in splits[part]:
                 out[part].append(v)
     return out["train"], out["val"], out["test"], subjects
+
+
+# the stage-2 reader's sentence splits (data_loader.py:282-285)
+BIWI_SPLITS = {
+    "vocaset": {"train": range(1, 41), "val": range(21, 41), "test": range(21, 41)},
+    "BIWI": {"train": range(1, 33), "val": range(33, 37), "test": range(37, 41)},
+}
+
+
+class BiwiDataset:
+    """BIWI vertices and templates, with the raw audio under ``read_audio``
+    (data_loader.py:14-42): items (vertice (L, V*3), template (V*3,),
+    one_hot, name), the normalized waveform first with ``read_audio``.
+    ``one_hot`` is the subject's row of the training subjects' identity in
+    ``train``, the whole identity otherwise."""
+
+    def __init__(self, items: Sequence[Dict], train_subjects: Sequence[str],
+                 data_type: str = "train", read_audio: bool = False):
+        self.items = list(items)
+        self.train_subjects = list(train_subjects)
+        self.data_type = data_type
+        self.read_audio = read_audio
+        self.one_hot_labels = np.eye(len(self.train_subjects), dtype=np.float32)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index: int):
+        d = self.items[index]
+        name = d["name"]
+        vertice = np.asarray(d["vertice"], dtype=np.float32)
+        template = np.asarray(d["template"], dtype=np.float32)
+        if self.data_type == "train":
+            one_hot = self.one_hot_labels[self.train_subjects.index("_".join(name.split("_")[:-1]))]
+        else:
+            one_hot = self.one_hot_labels
+        if self.read_audio:
+            return np.asarray(d["audio"], dtype=np.float32), vertice, template, one_hot, name
+        return vertice, template, one_hot, name
+
+    @classmethod
+    def read_data(cls, data_root: str, wav_path: str, vertices_path: str, template_file: str,
+                  dataset: str, train_subjects: str, val_subjects: str, test_subjects: str,
+                  read_audio: bool = False):
+        """A BIWI tree -> (train, val, test, subjects) item lists
+        (data_loader.py:247-307): a wav clip with its vertices (every second
+        frame for vocaset) and its subject's template, the waveform through
+        ``load_wav_16k`` and ``processor_normalize`` with ``read_audio``.
+        Clips are read in sorted order of their names."""
+        from ..models.wav2vec2 import processor_normalize
+
+        audio_dir = os.path.join(data_root, wav_path)
+        vert_dir = os.path.join(data_root, vertices_path)
+        templates = _load_pickle_latin1(os.path.join(data_root, template_file))
+        data: Dict[str, Dict] = {}
+        for r, _, fs in os.walk(audio_dir):
+            for fname in sorted(fs):
+                if not fname.endswith("wav"):
+                    continue
+                key = fname.replace("wav", "npy")
+                vert_path = os.path.join(vert_dir, key)
+                if not os.path.exists(vert_path):
+                    continue
+                vertice = np.load(vert_path, allow_pickle=True)
+                if dataset == "vocaset":
+                    vertice = vertice[::2, :]
+                data[key] = {"name": fname, "vertice": vertice, "audio": None,
+                             "template": np.asarray(templates["_".join(key.split("_")[:-1])]
+                                                    ).reshape(-1)}
+                if read_audio:
+                    data[key]["audio"] = processor_normalize(load_wav_16k(os.path.join(r, fname)))
+        subjects = {"train": train_subjects.split(" "), "val": val_subjects.split(" "),
+                    "test": test_subjects.split(" ")}
+        splits = BIWI_SPLITS[dataset]
+        out = {"train": [], "val": [], "test": []}
+        for k, v in data.items():
+            subject_id = "_".join(k.split("_")[:-1])
+            sentence_id = int(k.split(".")[0][-2:])
+            for part in ("train", "val", "test"):
+                if subject_id in subjects[part] and sentence_id in splits[part]:
+                    out[part].append(v)
+        return out["train"], out["val"], out["test"], subjects
 
 
 def _load_pickle_latin1(path: str):

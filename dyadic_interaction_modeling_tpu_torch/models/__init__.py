@@ -1,15 +1,16 @@
-"""The port's models. ``get_model`` builds a stage-1 tokenizer by its
-config's ``arch``."""
+"""The port's models. ``get_model`` builds a stage-1 tokenizer, or the
+stage-2 CodeTalker, by its config's ``arch``."""
 
 from __future__ import annotations
 
 from torch import nn
 
+from .codetalker import CodeTalker
 from .vq_vae import VQAutoEncoder, VQSpeakerAutoEncoder
 
 
 def get_model(cfg) -> nn.Module:
-    """The tokenizer named by ``cfg.arch`` (``models/__init__.py:17`` of the
+    """The model named by ``cfg.arch`` (``models/__init__.py:17`` of the
     JAX package, the reference's ``models/__init__.get_model``)."""
     if cfg.arch == "stage1_BIWI":
         return VQAutoEncoder(cfg)
@@ -18,7 +19,5 @@ def get_model(cfg) -> nn.Module:
     if cfg.arch in ("stage1_speaker_BIWI", "stage1_BIWI_speaker"):
         return VQSpeakerAutoEncoder(cfg)
     if cfg.arch == "stage2":
-        raise NotImplementedError(
-            "arch 'stage2' (CodeTalker) is not ported yet (ROADMAP.md, queue 1 item 4: "
-            "the speaker and speech path)")
+        return CodeTalker(cfg)
     raise ValueError(f"unknown arch: {cfg.arch}")

@@ -4,8 +4,9 @@ Adapted from ``dyadic_interaction_modeling_tpu/utils/torch_export.py``
 (``flax_vq_to_torch`` :140, ``flax_vq_speaker_to_torch`` :163,
 ``flax_slm_to_torch`` :260, with its SpeakerSLMFT and EmocaConverter heads
 :236-299, ``flax_listener_generator_to_torch`` :302), plus the seq2seq
-listener path's ``ContinuousSeq2Seq`` and ``SimpleLSTM``, which the JAX
-package does not export. The inputs are the flax trees as nested mappings of
+listener path's ``ContinuousSeq2Seq`` and ``SimpleLSTM``, the speech path's
+wav2vec2 / HuBERT trunk, ``CodeTalker`` and the sentiment probe, which the
+JAX package does not export. The inputs are the flax trees as nested mappings of
 numpy arrays; no JAX is imported.
 
 Layout notes:
@@ -16,6 +17,10 @@ Layout notes:
 * The SLM transformer stack follows x-transformers 1.30: its LayerNorm saves
   ``gamma`` (param) + ``beta`` (zero buffer); positional tables are stored
   times ``dim ** 0.5`` because the forward applies ``dim ** -0.5``.
+* The wav2vec2 trunk takes HF's ``Wav2Vec2Model`` names (the inverse of
+  ``hf_wav2vec2_to_flax``, JAX ``models/wav2vec2.py:342``); CodeTalker's
+  decoder takes torch ``nn.TransformerDecoder``'s, its q / k / v kernels
+  stacked into ``in_proj_weight``.
 * Leaves absent from the flax tree (a never-used ``project_out``, SLMFT's
   speaker-VQ decoder and decoder ``pos_emb``, SpeakerSLMFT's encoders,
   norms and second mesh head) are absent from the port's modules too.
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.positional import sinusoid_table
+from ..models.codetalker import MAX_SEQ_LEN
 
 
 def _np(x) -> np.ndarray:
@@ -303,4 +309,86 @@ def jax_simple_lstm_to_state_dict(params) -> Dict[str, torch.Tensor]:
     p = _unwrap(params)
     sd = {f"model.{k}": _np(v) for k, v in p["model"].items()}
     _dense(sd, "fc", p["fc"])
+    return _to_torch(sd)
+
+
+def _w2v(sd, p, prefix=""):
+    """``models.wav2vec2.Wav2Vec2Model`` params under HF's names; the conv
+    and encoder depths follow the tree."""
+    fe = p["feature_extractor"]
+    for i in range(len(fe)):
+        c, pre = fe[f"conv_{i}"], f"{prefix}feature_extractor.conv_layers.{i}"
+        sd[f"{pre}.conv.weight"] = _np(c["kernel"]).transpose(2, 1, 0)
+        if "bias" in c:
+            sd[f"{pre}.conv.bias"] = _np(c["bias"])
+        if "gn_scale" in c:
+            sd[f"{pre}.layer_norm.weight"] = _np(c["gn_scale"])
+            sd[f"{pre}.layer_norm.bias"] = _np(c["gn_bias"])
+        elif "ln" in c:
+            _layernorm(sd, f"{pre}.layer_norm", c["ln"])
+    _layernorm(sd, f"{prefix}feature_projection.layer_norm", p["fp_norm"])
+    _dense(sd, f"{prefix}feature_projection.projection", p["fp_proj"])
+    sd[f"{prefix}masked_spec_embed"] = _np(p["masked_spec_embed"])
+    pos = f"{prefix}encoder.pos_conv_embed.conv"
+    sd[f"{pos}.weight"] = _np(p["pos_conv"]["kernel"]).transpose(2, 1, 0)
+    sd[f"{pos}.bias"] = _np(p["pos_conv"]["bias"])
+    _layernorm(sd, f"{prefix}encoder.layer_norm", p["enc_norm"])
+    n_layers = sum(k.startswith("layer_") for k in p)
+    for i in range(n_layers):
+        lay, pre = p[f"layer_{i}"], f"{prefix}encoder.layers.{i}"
+        for nm in ("q", "k", "v", "out"):
+            _dense(sd, f"{pre}.attention.{nm}_proj", lay[nm])
+        _layernorm(sd, f"{pre}.layer_norm", lay["ln_attn"])
+        _dense(sd, f"{pre}.feed_forward.intermediate_dense", lay["ff1"])
+        _dense(sd, f"{pre}.feed_forward.output_dense", lay["ff2"])
+        _layernorm(sd, f"{pre}.final_layer_norm", lay["ln_ff"])
+
+
+def jax_wav2vec2_to_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``models.wav2vec2.Wav2Vec2Model`` (or ``HubertModel``) params -> the
+    port's ``Wav2Vec2Model`` state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _w2v(sd, _unwrap(params))
+    return _to_torch(sd)
+
+
+def _mha(sd, prefix, lay, which):
+    sd[f"{prefix}.in_proj_weight"] = np.concatenate(
+        [_np(lay[f"{which}_{nm}"]["kernel"]).T for nm in ("q", "k", "v")])
+    sd[f"{prefix}.in_proj_bias"] = np.concatenate(
+        [_np(lay[f"{which}_{nm}"]["bias"]) for nm in ("q", "k", "v")])
+    _dense(sd, f"{prefix}.out_proj", lay[f"{which}_out"])
+
+
+def jax_codetalker_to_state_dict(params, cfg) -> Dict[str, torch.Tensor]:
+    """``models.codetalker.CodeTalker`` params -> the port's ``CodeTalker``
+    state_dict, the ``PPE.pe`` table included."""
+    p = _unwrap(params)
+    sd: Dict[str, np.ndarray] = {}
+    _w2v(sd, p["audio_encoder"], "audio_encoder.")
+    _dense(sd, "audio_feature_map", p["audio_feature_map"])
+    _dense(sd, "vertice_map", p["vertice_map"])
+    repeat = MAX_SEQ_LEN // cfg.period + 1
+    sd["PPE.pe"] = np.tile(sinusoid_table(cfg.period, cfg.feature_dim).numpy(), (repeat, 1))[None]
+    for i in range(cfg.num_layers):
+        lay, pre = p[f"dec_{i}"], f"transformer_decoder.layers.{i}"
+        _mha(sd, f"{pre}.self_attn", lay, "self")
+        _mha(sd, f"{pre}.multihead_attn", lay, "cross")
+        _dense(sd, f"{pre}.linear1", lay["ff1"])
+        _dense(sd, f"{pre}.linear2", lay["ff2"])
+        for nm in ("norm1", "norm2", "norm3"):
+            _layernorm(sd, f"{pre}.{nm}", lay[nm])
+    _dense(sd, "feat_map", p["feat_map"], bias=False)
+    sd["learnable_style_emb.weight"] = _np(p["learnable_style_emb"]["embedding"])
+    _vq(sd, p["autoencoder"], cfg, prefix="autoencoder.")
+    return _to_torch(sd)
+
+
+def jax_sentiment_to_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``metrics.sentiment.SentimentMLP`` params -> the port's
+    ``SentimentMLP`` state_dict."""
+    p = _unwrap(params)
+    sd: Dict[str, np.ndarray] = {}
+    for nm in ("fc1", "fc2", "fc3"):
+        _dense(sd, nm, p[nm])
     return _to_torch(sd)

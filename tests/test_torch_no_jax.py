@@ -51,19 +51,25 @@ def test_port_imports_with_jax_blocked():
     assert {f"dyadic_interaction_modeling_tpu_torch.{m}" for m in (
         "cli.train_vq", "cli.finetune_s2s_pretrain", "engine.vq_engine",
         "utils.checkpoint", "metrics.loss", "cli.common", "data.datasets",
-        "data.reference_files", "models")} <= names
+        "data.reference_files", "models", "models.wav2vec2", "models.hubert",
+        "models.codetalker", "metrics.sentiment", "cli.train_stage2", "serving.audio")} <= names
 
 
 def test_entry_points_default_to_cuda():
     from dyadic_interaction_modeling_tpu_torch.cli import (
-        finetune_s2s_pretrain, train_s2s_pretrain, train_vq)
+        finetune_s2s_pretrain, train_s2s_pretrain, train_stage2, train_vq)
     from dyadic_interaction_modeling_tpu_torch.cli.test_s2s_pretrain import get_parser
     from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import evaluate_test_epoch
 
     assert get_parser().parse_args(["--synthetic"]).device == "cuda"
-    for twin in (train_s2s_pretrain, train_vq, finetune_s2s_pretrain):
+    for twin in (train_s2s_pretrain, train_vq, finetune_s2s_pretrain, train_stage2):
         assert twin.get_parser().parse_args(["--synthetic"]).device == "cuda", twin.__name__
     assert inspect.signature(evaluate_test_epoch).parameters["device"].default == "cuda"
+    from dyadic_interaction_modeling_tpu_torch.metrics.sentiment import train_probe
+    from dyadic_interaction_modeling_tpu_torch.models.hubert import make_hubert_extractor
+
+    for fn in (make_hubert_extractor, train_probe):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
 def _run_chip_smoke(cwd):

@@ -148,9 +148,9 @@ def test_speaker_config_and_get_model():
     cfg.arch = "stage1_vocaset"
     model = get_model(cfg)
     assert type(model) is VQAutoEncoder and model.variant == "vocaset"
-    cfg.arch = "stage2"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_model(cfg)
+    stage2 = TC.codetalker_defaults()  # CodeTalker, ported since: built, no longer refused
+    stage2.update(SMALL, feature_dim=32, vertice_dim=90, in_dim=90, n_head=2, num_layers=1)
+    assert type(get_model(stage2)).__name__ == "CodeTalker"
 
 
 AV_TINY = ["in_dim", "824", "hidden_size", "32", "num_hidden_layers", "1",

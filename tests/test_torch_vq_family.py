@@ -131,8 +131,10 @@ def test_get_model_builds_stage1_vocaset():
                                            np.zeros((1, 8, 56), np.float32),
                                            np.zeros((1, 56), np.float32)))
     model.load_state_dict(W.jax_vq_to_state_dict(params, cfg), strict=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        get_model(_cfg(TC, arch="stage2"))
+    stage2 = TC.codetalker_defaults()  # CodeTalker, ported since: built, no longer refused
+    stage2.update(hidden_size=32, feature_dim=32, vertice_dim=90, in_dim=90, n_head=2,
+                  num_layers=1)
+    assert type(get_model(stage2)).__name__ == "CodeTalker"
 
 
 def test_decode_feats_matches_jax():
