@@ -11,7 +11,9 @@ train_s2s / test_s2s twins on files), the streaming serving sessions
 (listener session, session pool, speaker session), then the speech path
 (the wav2vec2 / HuBERT trunk, CodeTalker's training step and predict,
 train_stage2 and test_biwi --data-root on BIWI files, the streaming audio
-front-end), and time it all.
+front-end), then the PIRender inference path (FaceGenerator at full width,
+render_clip, the render_inference and intuitive_control twins), and time it
+all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -121,7 +123,8 @@ line):
     VQ's checkpoint re-saved in the reference layout (K4 in epoch 1's steps,
     0 in epoch 2's), ``finetune_s2s_pretrain`` from the pretrain checkpoint
     and ``test_s2s_pretrain`` from the finetune checkpoint, with each
-    twin's launch counts;
+    twin's launch counts and each training twin's run record
+    (``scalars.jsonl`` with the JAX CLIs' tags, ``hparams.json``);
 14. the BIWI speaker family at full width (``slm_defaults()`` +
     ``vq_listener_defaults()``, 70110-d meshes, 15 speakers, fp32, seeded
     random weights, synthetic BIWI clips of 120 frames): SpeakerSLMFT
@@ -156,8 +159,8 @@ line):
     3060, K2 6, K4 2 a batch), timed; its fp32 teacher-forced decode steps
     against the plain versions (logits within 1e-3); then
     ``cli.train_s2s.main`` (and ``--continuous``) and ``cli.test_s2s.main``
-    (from a reference-layout ``.pt`` of the first) on ViCo files
-    (``s2s_generate_path``);
+    (from a reference-layout ``.pt`` of the first) on ViCo files, the
+    training runs' run records checked (``s2s_generate_path``);
 21. ``StreamingListenerSession`` on SLMFT at full width, batch 4, chunk 8,
     max_frames 256: one feed, ``start`` (K4 once), 31 rounds of 8 frames
     and 8 codes (K1 8 a code), bf16, the round latency (host clock,
@@ -201,7 +204,21 @@ line):
     chunk 8, window 60, lookahead 2, over 4 s pushed in irregular pieces:
     emissions bitwise equal to one whole push's; the median ms to emit a
     chunk (``audio_frontend_path``);
-29. the VQ attention at D = 48 and 96 by both routes (``attend`` and
+29. PIRender's ``FaceGenerator`` at full width (``RENDER_DEFAULTS``, 56-d
+    EMOCA coefficients), seeded, a 256 x 256 source, a clip of 120 frames in
+    windows of radius 13: ``render_clip`` in batches of 8, fp32 with TF32
+    off (K1-K4: 0 launches), its first batch against the CPU's (flow, warp,
+    fake within 1e-3 of each output's largest magnitude), the mixed config
+    (bf16 mapping and editing nets, fp32 warp) against fp32 within
+    ``RENDER_MIXED_BOUND``; a batch of 8 timed (median of 10 between CUDA
+    events) in fp32, fp32 with TF32 and the mixed config, with peak memory
+    and 3 batches traced (busy share, top kernels) (``render_path``);
+30. ``cli.render_inference`` on a coefficient directory and with
+    ``--video`` on a PNG VoxCeleb LMDB root, and ``cli.intuitive_control
+    --synthetic``, at 256 x 256 through ``--checkpoint`` (a reference-layout
+    ``.pt``): frame counts, frames against the same weights in memory within
+    one uint8 level, K1-K4 at 0 (``render_files_path``);
+31. the VQ attention at D = 48 and 96 by both routes (``attend`` and
     K2/K3), forward and backward, graph-timed at L = 256, 512, 768 and 1024
     in fp32 and bf16; then the ``kernels`` JSON line and, last, the device
     JSON line.
@@ -1514,6 +1531,35 @@ def finetune_fp64_reference():
             "past_1e-3": rows, "largest_ratio": ratio, "kernels_vs_fp64_other_leaves": ek[rest]}
 
 
+# the least tags of each training twin's run record (tests/test_postprocess_cli.py
+# _assert_observability_artifacts)
+RUN_RECORD_TAGS = {
+    "train_vq": ["train/rec_loss", "train/quant_loss", "train/perplexity", "val/rec_loss",
+                 "val/quant_loss", "val/perplexity"],
+    "train_s2s_pretrain": ["val/l_ce_l", "val/loss", "learning_rate"],
+    "train_s2s": ["train/loss", "val/loss", "learning_rate"],
+    "train_s2s_continuous": ["val/loss", "learning_rate"],
+    "finetune_s2s_pretrain": ["val/fid_pose", "val/fid_exp", "learning_rate"],
+}
+
+
+def run_record(save_dir, twin):
+    """Checks that ``twin`` wrote its run record into ``save_dir``:
+    ``scalars.jsonl`` with at least its tags, and ``hparams.json``. Returns
+    the tags written."""
+    tags, hparams = set(), os.path.join(save_dir, "hparams.json")
+    try:
+        with open(os.path.join(save_dir, "scalars.jsonl")) as f:
+            tags = {json.loads(line)["tag"] for line in f}
+    except FileNotFoundError:
+        pass
+    missing = sorted(set(RUN_RECORD_TAGS[twin]) - tags)
+    check(not missing and os.path.isfile(hparams),
+          f"{twin} wrote its run record: scalars.jsonl with {len(tags)} tags (missing "
+          f"{missing}), hparams.json {'present' if os.path.isfile(hparams) else 'absent'}")
+    return sorted(tags)
+
+
 def _reference_checkpoint(path, out):
     """The twin's state_dict at ``path`` re-saved as a reference file may
     hold it: ``{'state_dict': ...}``, nn.DataParallel's ``module.`` prefix,
@@ -1549,7 +1595,9 @@ def real_files_path():
     ``finetune_s2s_pretrain`` (bf16 autocast, ``--pretrained`` from the
     second's, 1 epoch); ``test_s2s_pretrain`` (``--state-dict`` from the
     third's, best-of-10 in fp32). Every launch count is set to 0 just before
-    each twin and read just after."""
+    each twin and read just after. Each training twin's run record
+    (``scalars.jsonl`` with the JAX CLI's tags, ``hparams.json``) is
+    checked."""
     import pickle
     import shutil
     import tempfile
@@ -1589,6 +1637,7 @@ def real_files_path():
                 "flash_attention_bwd": 12 * RF_TRAIN, "nearest_code": RF_TRAIN + RF_TEST}
         check(got == want, f"train_vq launches == {want}: 12 K2, 12 K3 and 1 K4 a training "
               "step at L = 512, 1 K4 a validation clip at L = 256")
+        records = {"train_vq": run_record(os.path.join(root, "vq"), "train_vq")}
         vq = _reference_checkpoint(os.path.join(root, "vq", "best_model.pt"),
                                    os.path.join(root, "vq.pth.tar"))
         per_epoch, real_epoch = [], train_s2s_pretrain.train_epoch
@@ -1612,6 +1661,8 @@ def real_files_path():
         check(per_epoch == want, f"train_s2s_pretrain with the token cache: {steps} steps an "
               "epoch, 20 K2 and 20 K3 a step, K4 twice a batch in epoch 1 and 0 times in "
               f"epoch 2: {want}")
+        records["train_s2s_pretrain"] = run_record(os.path.join(root, "pretrain"),
+                                                   "train_s2s_pretrain")
         pre = _reference_checkpoint(os.path.join(root, "pretrain", "best_model.pt"),
                                     os.path.join(root, "pretrain.pth.tar"))
         drive("finetune_s2s_pretrain", finetune_s2s_pretrain.main, [
@@ -1621,6 +1672,8 @@ def real_files_path():
         check(got["decode_attention"] == 0 and min(
             got[k] for k in ("flash_attention_fwd", "flash_attention_bwd", "nearest_code")) > 0,
               f"finetune_s2s_pretrain launched K2, K3 and K4 and no K1: {got}")
+        records["finetune_s2s_pretrain"] = run_record(os.path.join(root, "finetune"),
+                                                      "finetune_s2s_pretrain")
         ft = _reference_checkpoint(os.path.join(root, "finetune", "best_model.pt"),
                                    os.path.join(root, "finetune.pth.tar"))
         pred = os.path.join(root, "pred.pkl")
@@ -1638,7 +1691,7 @@ def real_files_path():
                       for p in out["y_pred"]))
         check(ok, f"test_s2s_pretrain: {len(out['y_pred'])} best-of-10 predictions of "
               f"({L - 1}, 56), all finite")
-        return {"runs": runs, "pretrain_epochs": per_epoch}
+        return {"runs": runs, "pretrain_epochs": per_epoch, "run_record_tags": records}
     finally:
         os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
@@ -2320,6 +2373,7 @@ def s2s_generate_path(train):
         out = _drive_twin("train_s2s", train_s2s.main,
                           ["--save-path", os.path.join(root, "lg"), "epochs", "1"], runs)
         check("perplexity" in out, "train_s2s printed its validation perplexity")
+        run_record(os.path.join(root, "lg"), "train_s2s")
         steps = S2S_RF_TRAIN // S2S_B
         want = {"decode_attention": 0, "flash_attention_fwd": 12 * (steps + 2),
                 "flash_attention_bwd": 12 * steps, "nearest_code": 2 * steps + 2 * 2}
@@ -2333,6 +2387,7 @@ def s2s_generate_path(train):
         check(got["flash_attention_fwd"] > 0 and got["flash_attention_bwd"] > 0
               and got["decode_attention"] == got["nearest_code"] == 0,
               f"train_s2s --continuous launched K2 and K3 only: {got}")
+        run_record(os.path.join(root, "cont"), "train_s2s_continuous")
         ckpt = _reference_checkpoint(os.path.join(root, "lg", "best_model.pt"),
                                      os.path.join(root, "lg.pth.tar"))
         out = _drive_twin("test_s2s", test_s2s.main, ["--checkpoint", ckpt], runs)
@@ -3040,6 +3095,274 @@ def audio_frontend_path():
             "chunk_runs_ms": times}
 
 
+# --- the PIRender inference path (no K1-K4 on it: convolutions, norms and one
+# grid_sample, cuDNN's and ATen's kernels) ---
+
+RENDER_B, RENDER_T, RENDER_RES, RENDER_RADIUS = 8, 120, 256, 13
+RENDER_REPS = 10
+# the mixed config (mapping and editing nets in bf16, the warp in fp32)
+# against fp32 on the card: max abs on each output, and mean abs on the fake
+# image (images in [-1, 1], flow in pixels of the H/4 grid)
+RENDER_MIXED_BOUND = {"flow_field": 0.02, "warp_image": 0.02, "fake_image": 0.1}
+RENDER_MIXED_MEAN_BOUND = 0.01
+def _render_inputs():
+    """A smooth 256 x 256 source (uint8, so a PNG of it is the same image)
+    and RENDER_T EMOCA-shaped frames (pose 6 + exp 50), seeded."""
+    import numpy as np
+
+    g = torch.Generator().manual_seed(62)
+    low = torch.rand(1, 3, 16, 16, generator=g) * 2 - 1
+    src = torch.nn.functional.interpolate(low, size=(RENDER_RES, RENDER_RES), mode="bilinear",
+                                          align_corners=False)
+    src8 = ((src[0].permute(1, 2, 0).clamp(-1, 1) + 1) * 127.5).round().to(torch.uint8).numpy()
+    rng = np.random.default_rng(63)
+    coeffs = np.concatenate([rng.normal(0, 0.1, (RENDER_T, 6)),
+                             rng.normal(0, 0.3, (RENDER_T, 50))], axis=1).astype(np.float32)
+    return src8, coeffs
+
+
+def _render_config(name, sd, dtype, warp_dtype, tf32, batch):
+    """One config's batch of RENDER_B: median ms of RENDER_REPS between CUDA
+    events, frames/s, peak memory, and PROFILED_STEPS batches traced."""
+    from dyadic_interaction_modeling_tpu_torch.render.generator import FaceGenerator
+
+    model = FaceGenerator(flame_coeff_nc=56, coeff_nc=73, dtype=dtype,
+                          warp_dtype=warp_dtype).to("cuda").eval()
+    model.load_state_dict(sd, strict=True)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        def fwd(*_):
+            with torch.inference_mode():
+                return model(*batch)
+
+        out = {k: v.float() for k, v in fwd().items()}
+        ms = cuda_ms(fwd, RENDER_REPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        windows, top = _trace_steps(fwd, (), f"render batch ({name})")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    say(f"render batch of {RENDER_B} at {RENDER_RES}x{RENDER_RES}, {name}, {CARD[-1]}: median "
+        f"{ms:.2f} ms -> {RENDER_B / ms * 1e3:.1f} frames/s, peak {peak:.0f} MiB, card busy "
+        f"{100 * windows['card']['busy_share']:.1f}% of 3 traced batches")
+    return out, {"batch_ms": ms, "frames_per_s": RENDER_B / ms * 1e3, "peak_mib": peak,
+                 "busy_share": windows["card"]["busy_share"], "traced_windows": windows,
+                 "top_kernels": [{"name": n[:120], "ms": t / 1e3, "launches": c}
+                                 for n, t, c in top[:8]]}
+
+
+@phase
+def render_path():
+    """PIRender's FaceGenerator at full width (``RENDER_DEFAULTS``:
+    descriptor 256, 3 mapping layers; warp base 32 to 256 over 5 + 3
+    hourglass blocks; editing base 64, 3 layers, 2 res blocks; 56-d EMOCA
+    coefficients into the 73-d ``pre`` conv), seeded random weights, a
+    256 x 256 source and a clip of RENDER_T frames in windows of radius 13.
+    ``render_clip`` with batch 8 in fp32 (TF32 off), twice (cold, then
+    warm), with every launch count set to 0 just before each and read just
+    after (K1-K4: none); its first batch
+    against the same weights on the CPU (flow, warp and fake within 1e-3 of
+    each output's largest magnitude); the mixed config (bf16 mapping and
+    editing nets, fp32 warp) against the card's fp32 output within
+    RENDER_MIXED_BOUND; then each of fp32 (TF32 off), fp32 with TF32 and the
+    mixed config timed on one batch of 8 (median of 10 between CUDA events),
+    its peak memory and 3 batches traced."""
+    import numpy as np
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.render.data import semantic_window
+    from dyadic_interaction_modeling_tpu_torch.render.generator import FaceGenerator
+    from dyadic_interaction_modeling_tpu_torch.render.inference import render_clip
+
+    torch.manual_seed(61)
+    model = FaceGenerator(flame_coeff_nc=56, coeff_nc=73).eval()
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    src8, coeffs = _render_inputs()
+    src = src8.astype(np.float32) / 127.5 - 1.0
+    windows = torch.from_numpy(np.stack([semantic_window(coeffs, i, RENDER_RADIUS)
+                                         for i in range(RENDER_B)]))
+    img = torch.from_numpy(src).permute(2, 0, 1)[None].expand(RENDER_B, -1, -1, -1)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu = model(img, windows)
+    say(f"render batch of {RENDER_B} on the CPU (the reference): {time.perf_counter() - t0:.1f} s")
+    model = model.to("cuda")
+    batch = (img.to("cuda"), windows.to("cuda"))
+    clip_s = []
+    for _ in range(2):  # cold (cuDNN's first choices, the context), then warm
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        clip = render_clip(model, src, coeffs, RENDER_RADIUS, batch_size=RENDER_B)
+        torch.cuda.synchronize()
+        clip_s.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    check(all(v == 0 for v in launches.values()), f"render_clip of {RENDER_T} frames launched "
+          f"no K1-K4: {launches}")
+    check(clip["fake_image"].shape == (RENDER_T, RENDER_RES, RENDER_RES, 3)
+          and bool(np.isfinite(clip["fake_image"]).all()),
+          f"render_clip: {clip['fake_image'].shape[0]} finite frames of {RENDER_RES}^2")
+    say(f"render_clip of {RENDER_T} frames, batch {RENDER_B}, fp32 (TF32 off), {CARD[-1]}: "
+        f"{clip_s[0]:.2f} s cold, {clip_s[1]:.2f} s warm (host clock, numpy in and out) -> "
+        f"{RENDER_T / clip_s[1]:.1f} frames/s")
+    with torch.inference_mode():
+        card = model(*batch)
+    errs = {}
+    for k in ("flow_field", "warp_image", "fake_image"):
+        ref = cpu[k]
+        errs[k] = float((card[k].cpu() - ref).abs().max() / ref.abs().max())
+        check(errs[k] <= 1e-3, f"render batch {k} on the card vs the CPU: max abs err "
+              f"{errs[k]:.3g} of its largest magnitude (tol 1e-3)")
+    first = np.abs(clip["fake_image"][:RENDER_B] - cpu["fake_image"].permute(0, 2, 3, 1).numpy())
+    check(float(first.max()) <= 1e-3, f"render_clip's first batch is the checked batch: fake "
+          f"within {float(first.max()):.3g} of the CPU's")
+    del model, card
+    results = {}
+    fp32_out, results["fp32"] = _render_config("fp32, TF32 off", sd, torch.float32, None,
+                                               False, batch)
+    _, results["fp32_tf32"] = _render_config("fp32, TF32 on", sd, torch.float32, None, True,
+                                             batch)
+    mixed_out, results["mixed"] = _render_config("bf16 editing, fp32 warp", sd, torch.bfloat16,
+                                                 torch.float32, False, batch)
+    mixed = {}
+    for k, bound in RENDER_MIXED_BOUND.items():
+        d = (mixed_out[k] - fp32_out[k]).abs()
+        mixed[k] = {"max_abs": float(d.max()), "mean_abs": float(d.mean())}
+        ok = mixed[k]["max_abs"] <= bound and (k != "fake_image"
+                                               or mixed[k]["mean_abs"] <= RENDER_MIXED_MEAN_BOUND)
+        check(ok, f"render mixed config vs fp32 on the card, {k}: max abs {mixed[k]['max_abs']:.3g}"
+              f" (bound {bound}), mean abs {mixed[k]['mean_abs']:.3g}"
+              + (f" (bound {RENDER_MIXED_MEAN_BOUND})" if k == "fake_image" else ""))
+    return {"launches": launches, "cpu_rel_err": errs, "mixed_vs_fp32": mixed,
+            "clip_s": clip_s, "clip_frames_per_s": RENDER_T / clip_s[1], **results,
+            "state_dict": sd, "source": src8, "coeffs": coeffs}
+
+
+def _same_png(path, want_uint8):
+    """Largest uint8 difference between the PNG at ``path`` and ``want``."""
+    import numpy as np
+
+    from dyadic_interaction_modeling_tpu_torch.render.image_io import read_png
+
+    return int(np.abs(read_png(path).astype(int) - want_uint8.astype(int)).max())
+
+
+@phase
+def render_files_path(render):
+    """The render twins on the card at ``--resolution 256`` through
+    ``--checkpoint``, each with every launch count set to 0 just before and
+    read just after (K1-K4: none): ``render_inference`` on a coefficient
+    directory of 16 of ``render_path``'s frames from its source written as a
+    PNG, with ``render_path``'s weights as a reference-layout ``.pt``
+    (``{"net_G_ema": sd}``); ``render_inference --video`` on a
+    ``write_vox_lmdb(..., img_format="png")`` root of two persons' clips of
+    16 frames, with a generator for the LMDB's 73-d windows (cv2 hidden, so
+    it writes gt | warp | fake PNG frames, not an mp4); and
+    ``intuitive_control --synthetic`` (120 frames of batch 1). Frame counts,
+    and frames against the same weights rendered in memory (one uint8
+    level)."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import intuitive_control, render_inference
+    from dyadic_interaction_modeling_tpu_torch.render.data import (
+        VoxVideoDataset, emoca_to_coeff3dmm, write_vox_lmdb)
+    from dyadic_interaction_modeling_tpu_torch.render.generator import (
+        FaceGenerator, face_generator_from_state_dict)
+    from dyadic_interaction_modeling_tpu_torch.render.image_io import write_png
+    from dyadic_interaction_modeling_tpu_torch.render.inference import (
+        render_clip, render_windows, to_uint8_frame, to_uint8_video)
+
+    root, runs, n = tempfile.mkdtemp(prefix="render_files_"), {}, 16
+
+    def drive(name, main, argv):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        runs[name] = {"launches": dict(kernels.LAUNCHES), "s": time.perf_counter() - t0}
+        say(f"{name}: {runs[name]['s']:.1f} s, launches {runs[name]['launches']}")
+        check(all(v == 0 for v in runs[name]["launches"].values()),
+              f"{name} launched no K1-K4")
+        return out
+
+    try:
+        ckpt = os.path.join(root, "pirender.pt")
+        torch.save({"net_G_ema": render["state_dict"], "current_iteration": 0}, ckpt)
+        src_png = os.path.join(root, "source.png")
+        write_png(src_png, render["source"])
+        clip_dir = os.path.join(root, "clip")
+        for i, row in enumerate(render["coeffs"][:n]):
+            os.makedirs(os.path.join(clip_dir, f"{i:06d}"))
+            np.save(os.path.join(clip_dir, f"{i:06d}", "pose.npy"), row[:6])
+            np.save(os.path.join(clip_dir, f"{i:06d}", "exp.npy"), row[6:])
+        out_dir = os.path.join(root, "out")
+        got = drive("render_inference", render_inference.main, [
+            "--checkpoint", ckpt, "--source-image", src_png, "--coeff-dir", clip_dir,
+            "--out", out_dir, "--resolution", str(RENDER_RES), "--device", "cuda"])
+        counts = [len(os.listdir(os.path.join(out_dir, k))) for k in ("fake", "warp")]
+        model = face_generator_from_state_dict(render["state_dict"]).to("cuda").eval()
+        src = render["source"].astype(np.float32) / 127.5 - 1.0
+        want = render_clip(model, src, render["coeffs"][:n], RENDER_RADIUS, RENDER_B)
+        diff = _same_png(os.path.join(out_dir, "fake", "00005.png"),
+                         to_uint8_frame(want["fake_image"][5]))
+        check(counts == [n, n] and diff <= 1 and got["fake_image"].shape[0] == n,
+              f"render_inference wrote {counts} fake/warp frames of {n}; frame 5 within {diff} "
+              "uint8 levels of the same weights in memory (1 allowed)")
+
+        torch.manual_seed(64)
+        sd73 = FaceGenerator(flame_coeff_nc=73, coeff_nc=73).state_dict()
+        ckpt73 = os.path.join(root, "pirender73.pt")
+        torch.save({"net_G_ema": sd73}, ckpt73)
+        rng = np.random.default_rng(65)
+        clips = {}
+        for person in ("id10001", "id10002"):
+            drift = rng.normal(0, 0.05, (n, 1, 1, 3))
+            frames = np.clip(src[None] + drift, -1, 1)
+            emoca = np.concatenate([rng.normal(0, 0.1, (n, 6)), rng.normal(0, 0.3, (n, 50))], 1)
+            clips[f"{person}#vid#00001"] = {"frames": frames, "coeff_3dmm": emoca_to_coeff3dmm(
+                emoca, rng.normal(1.0, 0.1, (n, 3)))}
+        vox = os.path.join(root, "vox")
+        write_vox_lmdb(vox, clips, resolution=RENDER_RES, test_names=list(clips),
+                       img_format="png")
+        with mock.patch.dict(sys.modules, {"cv2": None}):  # the PNG frames, to compare
+            written = drive("render_inference_video", render_inference.main, [
+                "--video", "--vox-root", vox, "--checkpoint", ckpt73, "--out",
+                os.path.join(root, "video"), "--resolution", str(RENDER_RES),
+                "--device", "cuda"])
+        ds = VoxVideoDataset(vox, resolution=RENDER_RES)
+        data = ds.load_next_video()
+        model73 = face_generator_from_state_dict(sd73).to("cuda").eval()
+        want = render_windows(model73, data["source_image"], data["target_semantics"], RENDER_B)
+        diff = _same_png(os.path.join(written[0], "00007.png"), np.concatenate(
+            [to_uint8_video(data[k][7:8])[0] if k == "target_images"
+             else to_uint8_video(want[k][7:8])[0]
+             for k in ("target_images", "warp_image", "fake_image")], axis=1))
+        n_written = len(os.listdir(written[0]))
+        check(len(written) == 2 and n_written == n and diff <= 1,
+              f"render_inference --video wrote {len(written)} videos of {n_written} frames; "
+              f"frame 7 within {diff} uint8 levels of the same weights in memory (1 allowed)")
+
+        ctrl = os.path.join(root, "control")
+        frames = drive("intuitive_control", intuitive_control.main, [
+            "--synthetic", "--checkpoint", ckpt, "--resolution", str(RENDER_RES),
+            "--device", "cuda", "--out", ctrl])
+        pngs = [f for f in os.listdir(ctrl) if not f.startswith("_")]
+        check(frames == 120 and len(pngs) == 120, f"intuitive_control --synthetic wrote {frames} "
+              f"frames ({len(pngs)} PNGs; 10 steps x 12 presets wanted)")
+        return {"runs": runs}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 @phase
 def vq_attention_routes():
     """The VQ attention by both routes, forward and backward, graph-timed
@@ -3185,7 +3508,7 @@ def _flash_entry(name, line, which, tt, k23, by_path):
 
 
 def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k4, k1, k23,
-                 t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s, speech):
+                 t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s, speech, render):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
@@ -3210,7 +3533,10 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
              f"codetalker_train_{TRAIN_STEPS}_steps": speech["train"]["launches"],
              f"codetalker_predict_{BIWI_L}_frames": speech["predict"]["launches"],
              **{f"speech_files_{name}": r["launches"]
-                for name, r in speech["files"]["runs"].items()}}
+                for name, r in speech["files"]["runs"].items()},
+             f"render_clip_{RENDER_T}_frames": render["launches"],
+             **{f"render_files_{name}": r["launches"]
+                for name, r in render["files"]["runs"].items()}}
 
     def by_path(name, generate=None):
         out = {} if generate is None else generate
@@ -3317,7 +3643,8 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
         "codetalker_predict_ms": speech["predict"]["ms"],
         "codetalker_predict_runs_ms": speech["predict"]["runs_ms"],
         "codetalker_predict_motion_rel_err": speech["predict"]["motion_rel_err"],
-        "speech_files": speech["files"], "audio_frontend": speech["frontend"]}
+        "speech_files": speech["files"], "audio_frontend": speech["frontend"],
+        "render": render}
 
 
 def main() -> int:
@@ -3392,11 +3719,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     speech["frontend"] = audio_frontend_path()
     torch.cuda.empty_cache()
+    render = render_path()
+    torch.cuda.empty_cache()
+    render_files = render_files_path(render) if render else None
+    if render:
+        for key in ("state_dict", "source", "coeffs"):
+            del render[key]
+        render["files"] = render_files
+    torch.cuda.empty_cache()
     routes = vq_attention_routes()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_wide, mqa_ref,
                             mqa_wide_ref, train, train_ref, tt, vq, vq_ref, ft, ft_ref,
                             ft64, spk, spk_ref, rf, routes, *biwi.values(), *s2s.values(),
-                            *speech.values()):
+                            *speech.values(), render, render_files):
         say(f"FAILED: {FAILURES}")
         return 1
     refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
@@ -3405,7 +3740,7 @@ def main() -> int:
             "codetalker_predict": speech["predict"]}
     say(json.dumps(kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf,
                                 k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi,
-                                s2s, speech)))
+                                s2s, speech, render)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,8 +19,11 @@ leaves it) with a global-norm clip of 1.0 trains the rest on teacher-forced
 listener codes whose inputs are 15% corrupted. Each epoch it runs the FD
 battery on teacher-forced validation predictions (``print_metrics``) and
 saves the state_dict of the best FD, pose plus expression (``best_model.pt``
-under ``--save-path``). Trailing ``KEY VALUE`` pairs override
-``slm_defaults()`` (``epochs`` sets the number of epochs).
+under ``--save-path``), with the run record beside it
+(``utils.observability``, the JAX CLI's tags: ``train/`` the last step's
+logs, ``val/`` the battery's scalars, ``learning_rate``). Trailing ``KEY
+VALUE`` pairs override ``slm_defaults()`` (``epochs`` sets the number of
+epochs).
 
 Data: with ``--synthetic``, synthetic ViCo-shaped clips; else the ViCo
 files in the reference's layout, ``../data/vico_processed_30fps`` and
@@ -33,6 +36,7 @@ split to validate. ``--vq-token-cache`` and ``--prefetch`` as in the
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import slm_defaults, vq_cfg_for
@@ -45,6 +49,7 @@ from ..engine.train_state import make_optimizer
 from ..metrics.reporting import print_metrics
 from ..models.slm import SLM_ONLY, SLMFT, SLMFT_FROZEN
 from ..utils.checkpoint import BestCheckpointKeeper, load_reference
+from ..utils.observability import MetricsWriter
 from .common import get_parser as common_parser
 from .common import load_config, prefetched, slm_batches
 
@@ -110,21 +115,30 @@ def main(argv=None):
     train_loader, val_loader = make_loaders(args, args.batch_size)
     train_loader = prefetched(train_loader, args.prefetch)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    keeper = BestCheckpointKeeper(args.save_path or "./runs_vico_ft/model")
-    for epoch in range(slm_cfg.get("epochs", 10)):
-        train_loader.set_epoch(epoch)
-        model.train()
-        logs = train_epoch(slm_batches(train_loader, args.device, cache=cache), step, gen,
-                           epoch)
-        model.eval()
-        y_true, y_pred, xs, _ = evaluate_finetune_epoch(
-            model, slm_batches(val_loader, args.device, with_names=True), gen, amp)
-        m = print_metrics(y_true, y_pred, xs, verbose=False)
-        fd = m["fid_pose"] + m["fid_exp"]
-        print(f"epoch {epoch}: train {logs} FD pose {m['fid_pose']:.4f} exp "
-              f"{m['fid_exp']:.4f}", flush=True)
-        if keeper.update(fd, model):
-            print(f"epoch {epoch}: new best FD {fd:.4f}", flush=True)
+    save_dir = args.save_path or "./runs_vico_ft/model"
+    keeper = BestCheckpointKeeper(save_dir)
+    writer = MetricsWriter(save_dir, hparams=slm_cfg)
+    try:
+        for epoch in range(slm_cfg.get("epochs", 10)):
+            train_loader.set_epoch(epoch)
+            model.train()
+            logs = train_epoch(slm_batches(train_loader, args.device, cache=cache), step,
+                               gen, epoch)
+            model.eval()
+            y_true, y_pred, xs, _ = evaluate_finetune_epoch(
+                model, slm_batches(val_loader, args.device, with_names=True), gen, amp)
+            m = print_metrics(y_true, y_pred, xs, verbose=False)
+            fd = m["fid_pose"] + m["fid_exp"]
+            print(f"epoch {epoch}: train {logs} FD pose {m['fid_pose']:.4f} exp "
+                  f"{m['fid_exp']:.4f}", flush=True)
+            writer.add_scalars(logs, epoch + 1, prefix="train/")
+            writer.add_scalars({k: float(v) for k, v in m.items() if np.ndim(v) == 0},
+                               epoch + 1, prefix="val/")
+            writer.add_scalar("learning_rate", args.lr, epoch + 1)
+            if keeper.update(fd, model):
+                print(f"epoch {epoch}: new best FD {fd:.4f}", flush=True)
+    finally:
+        writer.close()
     return 0
 
 

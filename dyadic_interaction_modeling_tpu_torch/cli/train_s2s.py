@@ -17,6 +17,9 @@ the best validation loss (``best_model.pt`` under ``--save-path``).
 ``--continuous`` trains ``ContinuousSeq2Seq`` (MSE of the next frame) instead,
 the branch the reference keeps dormant (train_s2s.py:97). The model reads
 ``src[..., :56]``, the speaker motion, as the JAX package's ``_batches``.
+The run record goes beside the checkpoint (``utils.observability``, the JAX
+CLI's tags): ``train/loss`` (the token branch's last step), ``val/loss`` and
+``learning_rate`` each epoch in ``scalars.jsonl``, and ``hparams.json``.
 Data: ``finetune_s2s_pretrain.make_loaders`` (``--synthetic``, or the ViCo
 files under ``../data``). The JAX CLI's ``--mesh`` waits for the port of
 ``parallel/``.
@@ -35,6 +38,7 @@ from ..engine.s2s_engine import (evaluate_continuous_epoch, evaluate_epoch,
 from ..engine.train_state import make_optimizer
 from ..models.listener_generator import LG_FROZEN, ContinuousSeq2Seq, ListenerGenerator
 from ..utils.checkpoint import BestCheckpointKeeper
+from ..utils.observability import MetricsWriter
 from .common import get_parser as common_parser
 from .common import load_config
 from .finetune_s2s_pretrain import make_loaders
@@ -71,18 +75,25 @@ def _main_continuous(args, cfg) -> int:
     step = make_continuous_train_step(
         model, make_optimizer(model, args.lr, args.weight_decay), args.clip_norm)
     train_loader, val_loader = make_loaders(args, args.batch_size)
-    keeper = BestCheckpointKeeper(args.save_path or "./runs_s2s_cont/model")
-    for epoch in range(cfg.get("epochs", 10)):
-        train_loader.set_epoch(epoch)
-        model.train()
-        train_continuous_epoch((b[:3] for b in lg_batches(train_loader, args.device)), step,
-                               epoch)
-        model.eval()
-        val = evaluate_continuous_epoch(model, (b[:3] for b in lg_batches(val_loader,
-                                                                           args.device)))
-        print(f"epoch {epoch}: val MSE {val:.5f}", flush=True)
-        if keeper.update(val, model):
-            print(f"epoch {epoch}: new best {val:.5f}", flush=True)
+    save_dir = args.save_path or "./runs_s2s_cont/model"
+    keeper = BestCheckpointKeeper(save_dir)
+    writer = MetricsWriter(save_dir, hparams=cfg)
+    try:
+        for epoch in range(cfg.get("epochs", 10)):
+            train_loader.set_epoch(epoch)
+            model.train()
+            train_continuous_epoch((b[:3] for b in lg_batches(train_loader, args.device)),
+                                   step, epoch)
+            model.eval()
+            val = evaluate_continuous_epoch(model, (b[:3] for b in lg_batches(val_loader,
+                                                                               args.device)))
+            print(f"epoch {epoch}: val MSE {val:.5f}", flush=True)
+            writer.add_scalar("val/loss", val, epoch + 1)
+            writer.add_scalar("learning_rate", args.lr, epoch + 1)
+            if keeper.update(val, model):
+                print(f"epoch {epoch}: new best {val:.5f}", flush=True)
+    finally:
+        writer.close()
     return 0
 
 
@@ -98,17 +109,25 @@ def main(argv=None) -> int:
                                                     LG_FROZEN),
                               args.clip_norm, args.use_ids)
     train_loader, val_loader = make_loaders(args, args.batch_size)
-    keeper = BestCheckpointKeeper(args.save_path or "./runs_s2s/model")
-    for epoch in range(cfg.get("epochs", 10)):
-        train_loader.set_epoch(epoch)
-        model.train()
-        loss = train_epoch(lg_batches(train_loader, args.device), step, epoch)
-        model.eval()
-        val = evaluate_epoch(model, lg_batches(val_loader, args.device), args.use_ids)
-        print(f"epoch {epoch}: train loss {loss:.4f} val loss {val['loss']:.4f} "
-              f"perplexity {val['perplexity']:.4f}", flush=True)
-        if keeper.update(val["loss"], model):
-            print(f"epoch {epoch}: new best val {val['loss']:.4f}", flush=True)
+    save_dir = args.save_path or "./runs_s2s/model"
+    keeper = BestCheckpointKeeper(save_dir)
+    writer = MetricsWriter(save_dir, hparams=cfg)
+    try:
+        for epoch in range(cfg.get("epochs", 10)):
+            train_loader.set_epoch(epoch)
+            model.train()
+            loss = train_epoch(lg_batches(train_loader, args.device), step, epoch)
+            model.eval()
+            val = evaluate_epoch(model, lg_batches(val_loader, args.device), args.use_ids)
+            print(f"epoch {epoch}: train loss {loss:.4f} val loss {val['loss']:.4f} "
+                  f"perplexity {val['perplexity']:.4f}", flush=True)
+            writer.add_scalar("train/loss", loss, epoch + 1)
+            writer.add_scalar("val/loss", val["loss"], epoch + 1)
+            writer.add_scalar("learning_rate", args.lr, epoch + 1)
+            if keeper.update(val["loss"], model):
+                print(f"epoch {epoch}: new best val {val['loss']:.4f}", flush=True)
+    finally:
+        writer.close()
     return 0
 
 

@@ -14,7 +14,10 @@ loaded with ``strict=True``), freezes their encoders and quantizers, and
 trains with AdamW (lr 1e-5, weight decay 0.01, the reference's torch
 defaults) and a global-norm clip of 1.0 (x_engine_pt.py:37-38). Each epoch
 it trains, reports the validation loss and saves the best state_dict
-(``best_model.pt`` under ``--save-path``). Trailing ``KEY VALUE`` pairs
+(``best_model.pt`` under ``--save-path``), with the run record beside it
+(``utils.observability``, the JAX CLI's tags: ``train/`` the last step's
+logs, ``val/`` the validation logs and their sum ``val/loss``,
+``learning_rate``). Trailing ``KEY VALUE`` pairs
 override ``slm_defaults()`` (``epochs`` sets the number of epochs).
 
 Data: with ``--synthetic``, synthetic CANDOR-shaped clips; else the CANDOR
@@ -43,6 +46,7 @@ from ..engine.pt_engine import VQTokenCache, evaluate_epoch, make_slm_train_step
 from ..engine.train_state import make_optimizer
 from ..models.slm import SLM, SLM_FROZEN
 from ..utils.checkpoint import load_reference
+from ..utils.observability import MetricsWriter
 from .common import get_parser as common_parser
 from .common import load_config, prefetched, slm_batches
 
@@ -107,20 +111,28 @@ def main(argv=None):
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     save_path = args.save_path or "./runs_pretrain/model"
     os.makedirs(save_path, exist_ok=True)
+    writer = MetricsWriter(save_path, hparams=slm_cfg)
     best = float("inf")
-    for epoch in range(slm_cfg.get("epochs", 10)):
-        train_loader.set_epoch(epoch)
-        model.train()
-        logs = train_epoch(slm_batches(train_loader, args.device, cache=cache), step, gen,
-                           epoch)
-        model.eval()
-        val = evaluate_epoch(model, slm_batches(val_loader, args.device), gen, amp)
-        val_loss = sum(val[k] for k in VAL_KEYS)
-        print(f"epoch {epoch}: train {logs} val loss {val_loss:.4f} {val}", flush=True)
-        if val_loss < best:
-            best = val_loss
-            torch.save(model.state_dict(), os.path.join(save_path, "best_model.pt"))
-            print(f"epoch {epoch}: new best {val_loss:.4f}", flush=True)
+    try:
+        for epoch in range(slm_cfg.get("epochs", 10)):
+            train_loader.set_epoch(epoch)
+            model.train()
+            logs = train_epoch(slm_batches(train_loader, args.device, cache=cache), step,
+                               gen, epoch)
+            model.eval()
+            val = evaluate_epoch(model, slm_batches(val_loader, args.device), gen, amp)
+            val_loss = sum(val[k] for k in VAL_KEYS)
+            print(f"epoch {epoch}: train {logs} val loss {val_loss:.4f} {val}", flush=True)
+            writer.add_scalars(logs, epoch + 1, prefix="train/")
+            writer.add_scalars(val, epoch + 1, prefix="val/")
+            writer.add_scalar("val/loss", val_loss, epoch + 1)
+            writer.add_scalar("learning_rate", args.lr, epoch + 1)
+            if val_loss < best:
+                best = val_loss
+                torch.save(model.state_dict(), os.path.join(save_path, "best_model.pt"))
+                print(f"epoch {epoch}: new best {val_loss:.4f}", flush=True)
+    finally:
+        writer.close()
     return 0
 
 

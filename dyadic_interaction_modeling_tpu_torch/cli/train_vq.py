@@ -18,7 +18,11 @@ Clips of 512 frames or more take K2/K3 in every attention layer
 (``ops/transformer.py``). Each epoch it trains, validates and saves the
 state_dict of the best validation ``rec_loss`` (``best_model.pt`` under
 ``--save-path``), which the SLM CLIs load with ``--speaker-vq`` /
-``--listener-vq``.
+``--listener-vq``. The run record goes beside it (``utils.observability``,
+the JAX CLI's tags): ``scalars.jsonl`` with ``train_batch/loss``,
+``train_batch/loss_2`` and ``learning_rate`` every ``print_freq`` steps and
+``train/`` and ``val/`` ``rec_loss``, ``quant_loss`` and ``perplexity``
+each epoch, and ``hparams.json``.
 
 Data: with ``--synthetic``, synthetic ViCo-shaped clips (their listener
 stream, or listener || audio for the audio-visual VQ); else the ViCo files
@@ -49,6 +53,7 @@ from ..engine.train_state import make_optimizer
 from ..engine.vq_engine import make_vq_eval_step, make_vq_train_step, train_epoch, validate
 from ..models import get_model
 from ..utils.checkpoint import BestCheckpointKeeper
+from ..utils.observability import MetricsWriter
 from .common import get_parser as common_parser
 from .common import load_config, prefetched
 
@@ -120,16 +125,27 @@ def main(argv=None):
                                                 collate=vq_collate), args.prefetch)
     val_loader = PaddedBatchLoader(val_ds, cfg.batch_size_val, shuffle=False,
                                    collate=vq_collate)
-    keeper = BestCheckpointKeeper(args.save_path or "./runs_vq/model")
-    for epoch in range(cfg.epochs):
-        train_loader.set_epoch(epoch)
-        logs = train_epoch(_batches(train_loader, args.device), step, epoch,
-                           cfg.print_freq)
-        val = validate(_batches(val_loader, args.device), eval_step)
-        print(f"epoch {epoch}: train {logs} val "
-              + " ".join(f"{k} {v:.4f}" for k, v in val.items()), flush=True)
-        if keeper.update(val["rec_loss"], model):
-            print(f"epoch {epoch}: new best rec_loss {val['rec_loss']:.4f}", flush=True)
+    save_dir = args.save_path or "./runs_vq/model"
+    keeper = BestCheckpointKeeper(save_dir)
+    writer = MetricsWriter(save_dir, hparams=cfg)
+    steps_per_epoch = len(train_ds) // max(1, cfg.batch_size)
+    try:
+        for epoch in range(cfg.epochs):
+            train_loader.set_epoch(epoch)
+            logs = train_epoch(_batches(train_loader, args.device), step, epoch,
+                               cfg.print_freq, writer=writer,
+                               step_offset=epoch * steps_per_epoch, lr=cfg.base_lr)
+            val = validate(_batches(val_loader, args.device), eval_step)
+            print(f"epoch {epoch}: train {logs} val "
+                  + " ".join(f"{k} {v:.4f}" for k, v in val.items()), flush=True)
+            for k in ("rec_loss", "quant_loss", "perplexity"):
+                if k in logs:
+                    writer.add_scalar(f"train/{k}", logs[k], epoch + 1)
+                writer.add_scalar(f"val/{k}", val[k], epoch + 1)
+            if keeper.update(val["rec_loss"], model):
+                print(f"epoch {epoch}: new best rec_loss {val['rec_loss']:.4f}", flush=True)
+    finally:
+        writer.close()
     return 0
 
 

@@ -6,17 +6,19 @@ quantization loss (``metrics.loss.calc_vq_loss``, or with ``audio_visual``
 the speaker VQ's split motion + audio loss ``calc_vq_loss_AV``), backward
 and an optimizer step (AdamW from ``engine.train_state.make_optimizer``).
 The loop reads the card's metrics back once per print window, not every
-step.
+step, into ``AverageMeter``s, and writes them to a ``MetricsWriter`` with the
+reference's batch tags (train_vq.py:230-233).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
 from ..metrics.loss import calc_vq_loss, calc_vq_loss_AV
+from ..utils.logging import AverageMeter
 
 log = logging.getLogger(__name__)
 METRICS = ("loss", "rec_loss", "quant_loss", "perplexity")
@@ -59,16 +61,30 @@ def make_vq_eval_step(model, quant_loss_weight: float = 1.0,
 
 
 def train_epoch(loader: Iterable, train_step: Callable, epoch: int = 0,
-                print_freq: int = 500) -> Dict[str, float]:
-    """One pass over ``loader``'s batches (train_vq.train's loop): the log
-    line reads the metrics every ``print_freq`` steps, the only times the
-    host waits for the card. Returns the last step's metrics."""
+                print_freq: int = 500, writer=None, step_offset: int = 0,
+                lr: Optional[float] = None) -> Dict[str, float]:
+    """One pass over ``loader``'s batches (train_vq.train's loop): the meters
+    read the metrics every ``print_freq`` steps, the only times the host waits
+    for the card, and there the log line is written and, with a ``writer``
+    (``utils.observability.MetricsWriter``), the batch scalars at global step
+    ``step_offset + i + 1``: ``train_batch/loss`` (the reconstruction loss),
+    ``train_batch/loss_2`` (the quantization loss) and, given ``lr``,
+    ``learning_rate``. Returns the last step's metrics."""
+    meters = {k: AverageMeter() for k in METRICS}
     metrics = None
     for i, batch in enumerate(loader):
         metrics = train_step(batch)
         if (i + 1) % print_freq == 0:
+            for k in METRICS:
+                meters[k].update(float(metrics[k]))
             log.info("Epoch %d iter %d: loss %.4f rec %.4f quant %.4f ppl %.1f", epoch, i + 1,
-                     *(float(metrics[k]) for k in METRICS))
+                     *(meters[k].val for k in METRICS))
+            if writer is not None:
+                step = step_offset + i + 1
+                writer.add_scalar("train_batch/loss", meters["rec_loss"].val, step)
+                writer.add_scalar("train_batch/loss_2", meters["quant_loss"].val, step)
+                if lr is not None:
+                    writer.add_scalar("learning_rate", lr, step)
     return {} if metrics is None else {k: float(metrics[k]) for k in METRICS}
 
 

@@ -6,7 +6,8 @@ Adapted from ``dyadic_interaction_modeling_tpu/utils/torch_export.py``
 :236-299, ``flax_listener_generator_to_torch`` :302), plus the seq2seq
 listener path's ``ContinuousSeq2Seq`` and ``SimpleLSTM``, the speech path's
 wav2vec2 / HuBERT trunk, ``CodeTalker`` and the sentiment probe, which the
-JAX package does not export. The inputs are the flax trees as nested mappings of
+JAX package does not export, and PIRender's ``FaceGenerator`` (adapted from
+``render/import_torch.py:205``, ``flax_face_generator_to_torch``). The inputs are the flax trees as nested mappings of
 numpy arrays; no JAX is imported.
 
 Layout notes:
@@ -391,4 +392,85 @@ def jax_sentiment_to_state_dict(params) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     for nm in ("fc1", "fc2", "fc3"):
         _dense(sd, nm, p[nm])
+    return _to_torch(sd)
+
+
+def _fg_conv(sd, prefix, node, kind="conv"):
+    """flax Conv (kh, kw, I, O) -> Conv2d (O, I, kh, kw); ConvTranspose
+    (kh, kw, I, O), stored flipped in both spatial axes -> ConvTranspose2d
+    (I, O, kh, kw) (render/import_torch.py:21-24); Conv1d (k, I, O) ->
+    (O, I, k)."""
+    k = _np(node["kernel"])
+    if kind == "convT":
+        k = k[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif kind == "conv1d":
+        k = k.transpose(2, 1, 0)
+    else:
+        k = k.transpose(3, 2, 0, 1)
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(k)
+    sd[f"{prefix}.bias"] = _np(node["bias"])
+
+
+def _fg_adain(sd, prefix, node):
+    for nm, key in (("mlp_shared", "mlp_shared.0"), ("mlp_gamma", "mlp_gamma"),
+                    ("mlp_beta", "mlp_beta")):
+        _dense(sd, f"{prefix}.{key}", node[nm])
+
+
+def _fg_ln2d(sd, prefix, node):
+    sd[f"{prefix}.weight"] = _np(node["weight"]).reshape(-1, 1, 1)
+    sd[f"{prefix}.bias"] = _np(node["bias"]).reshape(-1, 1, 1)
+
+
+def _count(node, stem):
+    return sum(1 for k in node if k.startswith(stem) and k[len(stem):].isdigit())
+
+
+def jax_face_generator_to_state_dict(params) -> Dict[str, torch.Tensor]:
+    """``render.generator.FaceGenerator`` params (use_spect False) -> the
+    reference-layout state_dict that ``render.generator.FaceGenerator``
+    loads with ``strict=True``: the layout of JAX's
+    ``flax_face_generator_to_torch`` (render/import_torch.py:205), its
+    depths read off the tree."""
+    p = _unwrap(params)
+    sd: Dict[str, np.ndarray] = {}
+    m = p["mapping_net"]
+    _fg_conv(sd, "mapping_net.pre", m["pre"], "conv1d")
+    _fg_conv(sd, "mapping_net.first.0", m["first"], "conv1d")
+    for i in range(_count(m, "encoder")):
+        _fg_conv(sd, f"mapping_net.encoder{i}.1", m[f"encoder{i}"], "conv1d")
+
+    w = p["warpping_net"]
+    hg, pre = w["hourglass"], "warpping_net.hourglass"
+    _fg_conv(sd, f"{pre}.encoder.input_layer", hg["input_layer"])
+    for i in range(_count(hg, "encoder")):
+        node, q = hg[f"encoder{i}"], f"{pre}.encoder.encoder{i}"
+        for nm in ("norm_0", "norm_1"):
+            _fg_adain(sd, f"{q}.{nm}", node[nm])
+        for nm in ("conv_0", "conv_1"):
+            _fg_conv(sd, f"{q}.{nm}", node[nm])
+    for name in (k for k in hg if k.startswith("decoder")):
+        node, q = hg[name], f"{pre}.decoder.{name}"
+        for nm in ("norm_s", "norm_0", "norm_1"):
+            _fg_adain(sd, f"{q}.{nm}", node[nm])
+        _fg_conv(sd, f"{q}.conv_0", node["conv_0"])
+        for nm in ("conv_s", "conv_1"):
+            _fg_conv(sd, f"{q}.{nm}", node[nm], "convT")
+    _fg_ln2d(sd, "warpping_net.flow_out.0", w["flow_norm"])
+    _fg_conv(sd, "warpping_net.flow_out.2", w["flow_conv"])
+
+    e = p["editing_net"]
+    _fg_conv(sd, "editing_net.encoder.first.model.0", e["enc_first"])
+    _fg_ln2d(sd, "editing_net.encoder.first.model.1", e["enc_first_norm"])
+    for i in range(_count(e, "down")):
+        for nm, part in (("down", "encoder"), ("up", "decoder"), ("jump", "decoder")):
+            _fg_conv(sd, f"editing_net.{part}.{nm}{i}.model.0", e[f"{nm}{i}"])
+            _fg_ln2d(sd, f"editing_net.{part}.{nm}{i}.model.1", e[f"{nm}{i}_norm"])
+        for b in range(_count(e, f"res{i}_")):
+            node, q = e[f"res{i}_{b}"], f"editing_net.decoder.res{i}.res{b}"
+            for nm in ("conv1", "conv2"):
+                _fg_conv(sd, f"{q}.{nm}", node[nm])
+            for nm in ("norm1", "norm2"):
+                _fg_adain(sd, f"{q}.{nm}", node[nm])
+    _fg_conv(sd, "editing_net.decoder.final.model.0", e["final"])
     return _to_torch(sd)

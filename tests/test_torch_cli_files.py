@@ -42,6 +42,7 @@ from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import (
 )
 from dyadic_interaction_modeling_tpu_torch.engine.train_state import make_optimizer
 from dyadic_interaction_modeling_tpu_torch.models.slm import SLM, SLM_FROZEN, SLMFT
+from tests.test_torch_observability import assert_run_record, no_tensorboard  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def one_thread():
@@ -181,7 +182,7 @@ def _reference_file(model, path):
 
 @pytest.mark.parametrize("twin", ["train_vq", "train_s2s_pretrain",
                                   "finetune_s2s_pretrain", "test_s2s_pretrain"])
-def test_cli_twin_on_reference_files(files, monkeypatch, capsys, twin):
+def test_cli_twin_on_reference_files(files, monkeypatch, capsys, twin, no_tensorboard):
     monkeypatch.chdir(files / "work")
     out = files / twin
     cfg = TC.merge_cfg_from_list(TC.slm_defaults(), SLM_CLI)
@@ -196,6 +197,7 @@ def test_cli_twin_on_reference_files(files, monkeypatch, capsys, twin):
 
         VQAutoEncoder(train_vq.vq_train_cfg(VQ_CLI)).load_state_dict(
             torch.load(out / "best_model.pt", weights_only=True), strict=True)
+        assert_run_record(out, twin)
     elif twin == "train_s2s_pretrain":
         # with the token cache the VQ encoders run in epoch 1's training steps
         # only, and the weights come out as without it
@@ -225,6 +227,7 @@ def test_cli_twin_on_reference_files(files, monkeypatch, capsys, twin):
         assert "val loss" in capsys.readouterr().out
         assert all(torch.equal(states[0][k], states[1][k]) for k in states[1])
         SLM(cfg, vq_cfg).load_state_dict(states[0], strict=True)
+        assert_run_record(out, twin)
     elif twin == "finetune_s2s_pretrain":
         torch.manual_seed(3)
         _reference_file(SLM(cfg, vq_cfg), files / "slm.pth.tar")
@@ -234,6 +237,7 @@ def test_cli_twin_on_reference_files(files, monkeypatch, capsys, twin):
         assert "new best FD" in capsys.readouterr().out
         SLMFT(cfg, vq_cfg).load_state_dict(
             torch.load(out / "best_model.pt", weights_only=True), strict=True)
+        assert_run_record(out, twin)
     else:
         torch.manual_seed(4)
         _reference_file(SLMFT(cfg, vq_cfg), files / "slmft.pt")

@@ -47,6 +47,7 @@ from dyadic_interaction_modeling_tpu_torch.utils.weights import (
     jax_continuous_seq2seq_to_state_dict, jax_listener_generator_to_state_dict,
     jax_simple_lstm_to_state_dict)
 from test_torch_slmft import _clustered_motion
+from tests.test_torch_observability import assert_run_record, no_tensorboard  # noqa: F401
 
 LG_TINY = dict(dim=32, enc_depth=1, enc_heads=2, enc_max_seq_len=64, dec_num_tokens=24,
                dec_depth=1, dec_heads=2, dec_max_seq_len=64, num_identities=10,
@@ -499,15 +500,18 @@ def test_test_l2l_prints_jax_numbers(tmp_path):
                                    [float(v) for v in vb.split()], rtol=1e-9, err_msg=ka)
 
 
-def test_train_s2s_twin_both_branches_on_cpu(tmp_path, capsys):
+def test_train_s2s_twin_both_branches_on_cpu(tmp_path, capsys, no_tensorboard):
     """One epoch of each branch on synthetic clips; the token branch's best
-    state_dict loads strictly into a ``with_ids`` model."""
+    state_dict loads strictly into a ``with_ids`` model; both write the run
+    record (the continuous branch: ``val/loss`` and ``learning_rate``)."""
     assert train_s2s.main(["--synthetic", "--device", "cpu", "--use-ids", "--save-path",
                            str(tmp_path / "lg"), *TWIN, "epochs", "1"]) == 0
     assert train_s2s.main(["--synthetic", "--device", "cpu", "--continuous", "--save-path",
                            str(tmp_path / "cont"), *TWIN, "epochs", "1"]) == 0
     out = capsys.readouterr().out
     assert "perplexity" in out and "val MSE" in out
+    assert_run_record(tmp_path / "lg", "train_s2s")
+    assert_run_record(tmp_path / "cont", "train_s2s --continuous")
     cfg = TC.merge_cfg_from_list(TC.listener_generator_defaults(), TWIN)
     vq = TC.lg_vq_cfg(cfg, True)
     TL.ListenerGenerator(cfg, vq, vq).load_state_dict(

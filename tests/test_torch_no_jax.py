@@ -52,7 +52,11 @@ def test_port_imports_with_jax_blocked():
         "cli.train_vq", "cli.finetune_s2s_pretrain", "engine.vq_engine",
         "utils.checkpoint", "metrics.loss", "cli.common", "data.datasets",
         "data.reference_files", "models", "models.wav2vec2", "models.hubert",
-        "models.codetalker", "metrics.sentiment", "cli.train_stage2", "serving.audio")} <= names
+        "models.codetalker", "metrics.sentiment", "cli.train_stage2", "serving.audio",
+        "utils.logging", "utils.seeding", "utils.schedules", "utils.observability",
+        "utils.profiling", "utils.lmdb_lite", "render", "render.image_io", "render.config",
+        "render.flow", "render.generator", "render.data", "render.inference",
+        "cli.render_inference", "cli.intuitive_control")} <= names
 
 
 def test_entry_points_default_to_cuda():
@@ -62,7 +66,10 @@ def test_entry_points_default_to_cuda():
     from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import evaluate_test_epoch
 
     assert get_parser().parse_args(["--synthetic"]).device == "cuda"
-    for twin in (train_s2s_pretrain, train_vq, finetune_s2s_pretrain, train_stage2):
+    from dyadic_interaction_modeling_tpu_torch.cli import intuitive_control, render_inference
+
+    for twin in (train_s2s_pretrain, train_vq, finetune_s2s_pretrain, train_stage2,
+                 render_inference, intuitive_control):
         assert twin.get_parser().parse_args(["--synthetic"]).device == "cuda", twin.__name__
     assert inspect.signature(evaluate_test_epoch).parameters["device"].default == "cuda"
     from dyadic_interaction_modeling_tpu_torch.metrics.sentiment import train_probe

@@ -35,6 +35,7 @@ from dyadic_interaction_modeling_tpu_torch.models.vq_vae import VQAutoEncoder
 from dyadic_interaction_modeling_tpu_torch.utils.checkpoint import partial_load
 from dyadic_interaction_modeling_tpu_torch.utils.weights import jax_slm_to_state_dict
 from test_torch_slm_train import _jax_equivalent_adamw
+from tests.test_torch_observability import assert_run_record, no_tensorboard  # noqa: F401
 
 SMALL = dict(dim=32, dim_audio=16, enc_depth=2, dec_depth=2, enc_heads=4, dec_heads=4,
              num_tokens=32, enc_max_seq_len=64, dec_max_seq_len=64)
@@ -240,10 +241,10 @@ TINY = ["dim", "32", "enc_depth", "1", "dec_depth", "1", "enc_heads", "2", "dec_
         "epochs", "1"]
 
 
-def test_finetune_cli_twin_on_cpu(tmp_path, capsys):
+def test_finetune_cli_twin_on_cpu(tmp_path, capsys, no_tensorboard):
     """One epoch on synthetic ViCo clips from an SLM state_dict and two VQ
     state_dicts as the other twins save them; the FD battery runs and the
-    best state_dict loads strictly into SLMFT."""
+    best state_dict loads strictly into SLMFT; the run record is written."""
     cfg = TC.merge_cfg_from_list(TC.slm_defaults(), TINY)
     vq_cfg = TC.vq_cfg_for(cfg, True)
     paths = {}
@@ -258,6 +259,7 @@ def test_finetune_cli_twin_on_cpu(tmp_path, capsys):
                    "--pretrained", str(paths["slm"]), "--speaker-vq", str(paths["speaker"]),
                    "--listener-vq", str(paths["listener"]), *TINY])
     assert rc == 0 and "new best FD" in capsys.readouterr().out
+    assert_run_record(tmp_path / "run", "finetune_s2s_pretrain")
     best = torch.load(tmp_path / "run" / "best_model.pt", weights_only=True)
     model = TS.SLMFT(cfg, vq_cfg)
     model.load_state_dict(best, strict=True)

@@ -30,6 +30,7 @@ from dyadic_interaction_modeling_tpu_torch.models import VQAutoEncoder, get_mode
 from dyadic_interaction_modeling_tpu_torch.models.vq_vae import VQSpeakerAutoEncoder
 from dyadic_interaction_modeling_tpu_torch.ops import transformer as TT
 from dyadic_interaction_modeling_tpu_torch.utils.weights import jax_vq_speaker_to_state_dict
+from tests.test_torch_observability import assert_run_record, no_tensorboard  # noqa: F401
 
 @pytest.fixture(autouse=True)
 def one_thread():
@@ -159,7 +160,7 @@ AV_TINY = ["in_dim", "824", "hidden_size", "32", "num_hidden_layers", "1",
 
 
 def test_train_vq_av_on_the_vico_files_stops_as_jax_cannot_train(tmp_path, monkeypatch,
-                                                                  capsys):
+                                                                  capsys, no_tensorboard):
     """The audio-visual branch of ``train_vq`` on ViCo files: the speaker
     reader gives 56-d clips (the speaker video alone) to an 824-d model. The
     JAX CLI fails in its loss (``metrics/loss.py:33``, shapes (1, 32, 768)

@@ -33,6 +33,7 @@ from dyadic_interaction_modeling_tpu_torch.models.vq_vae import VQAutoEncoder
 from dyadic_interaction_modeling_tpu_torch.ops import transformer as TT
 from dyadic_interaction_modeling_tpu_torch.utils.checkpoint import BestCheckpointKeeper
 from dyadic_interaction_modeling_tpu_torch.utils.weights import jax_vq_to_state_dict
+from tests.test_torch_observability import assert_run_record, no_tensorboard  # noqa: F401
 
 SMALL = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
              intermediate_size=64, n_embed=32, zquant_dim=16)
@@ -266,10 +267,10 @@ TINY = ["hidden_size", "32", "num_hidden_layers", "1", "num_attention_heads", "2
 
 
 @pytest.mark.parametrize("config_wd", [False, True])
-def test_train_vq_cli_twin_on_cpu(tmp_path, capsys, monkeypatch, config_wd):
+def test_train_vq_cli_twin_on_cpu(tmp_path, capsys, monkeypatch, config_wd, no_tensorboard):
     """One epoch on synthetic clips; the best state_dict loads strictly. AdamW
     takes weight decay 0.01 whatever the config says (the reference quirk),
-    unless ``adamw_config_weight_decay True``."""
+    unless ``adamw_config_weight_decay True``. The run record is written."""
     seen = []
     real = train_vq.make_optimizer
     monkeypatch.setattr(train_vq, "make_optimizer",
@@ -279,6 +280,7 @@ def test_train_vq_cli_twin_on_cpu(tmp_path, capsys, monkeypatch, config_wd):
                         str(tmp_path / "run"), *TINY, *extra])
     assert rc == 0 and "new best rec_loss" in capsys.readouterr().out
     assert seen == [(1e-4, 0.002 if config_wd else 0.01)]
+    assert_run_record(tmp_path / "run", "train_vq")
     cfg = train_vq.vq_train_cfg(TINY)
     VQAutoEncoder(cfg).load_state_dict(
         torch.load(tmp_path / "run" / "best_model.pt", weights_only=True), strict=True)
