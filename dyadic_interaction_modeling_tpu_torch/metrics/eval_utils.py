@@ -48,6 +48,11 @@ def calculate_frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> f
                  - 2 * np.trace(covmean))
 
 
+def calculate_variance(activations: np.ndarray) -> float:
+    """The summed per-dimension variance (eval_utils.py:48-49)."""
+    return float(np.sum(np.var(activations, axis=0)))
+
+
 def _sq_dists(x: np.ndarray, centers: np.ndarray) -> np.ndarray:
     return ((x * x).sum(1)[:, None] + (centers * centers).sum(1)[None, :]
             - 2.0 * x @ centers.T)

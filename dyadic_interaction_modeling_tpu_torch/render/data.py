@@ -15,9 +15,12 @@ images (H, W, 3) in [-1, 1]:
 * ``emoca_to_coeff3dmm``, ``write_vox_lmdb`` (that LMDB layout) and
   ``load_coeff_dir_clip`` (an exported EMOCA coefficient directory).
 
+* ``load_clip_dirs``: rendered clips on disk (frames and an exported
+  coefficient directory a clip) as ``FramePairDataset`` clips.
+
 PNG frames go through ``render.image_io``; JPEG frames and resizing through
-Pillow. The training side (the datasets' ``batches``, ``VoxLMDirDataset``,
-``load_clip_dirs``) comes with the renderer's trainer.
+Pillow. The training side (the datasets' ``batches``, ``VoxLMDirDataset``)
+comes with the renderer's trainer.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Dict, Sequence
 import numpy as np
 
 from ..utils.lmdb_lite import LmdbReader, format_for_lmdb, write_lmdb
-from .image_io import decode_rgb, encode_png, pillow
+from .image_io import decode_rgb, encode_png, pillow, read_rgb
 
 
 def semantic_window(coeffs: np.ndarray, frame_index: int, radius: int) -> np.ndarray:
@@ -311,3 +314,39 @@ def load_coeff_dir_clip(clip_dir: str, pose_first: bool = True) -> np.ndarray:
                 parts.append(np.load(p).reshape(-1))
         frames.append(np.concatenate(parts, axis=0))
     return np.asarray(frames, dtype=np.float32)
+
+
+def load_clip_dirs(root: str, frames_subdir: str = "frames",
+                   coeffs_subdir: str = "coeffs", resolution: int = 256,
+                   max_clips: int = 0) -> list:
+    """Rendered clips on disk -> ``FramePairDataset`` clips, one directory a
+    clip (the ViCo/VoxCeleb export convention):
+
+        root/<clip_id>/frames/00000.png ...     RGB frames
+        root/<clip_id>/coeffs/<frame>/pose.npy, exp.npy[, cam.npy, shape.npy]
+
+    Frames load to [-1, 1] (H, W, 3) at ``resolution`` (``image_io.read_rgb``:
+    a PNG at that size without Pillow, a resize or a JPEG through it);
+    coefficients through ``load_coeff_dir_clip``, so a directory that
+    ``postprocess.export_emoca_dirs`` wrote is read as it is. Clips under 2
+    frames are skipped, and a clip keeps as many frames as it has both
+    images and coefficients for.
+    """
+    clips = []
+    for clip_id in sorted(os.listdir(root)):
+        cdir = os.path.join(root, clip_id)
+        fdir = os.path.join(cdir, frames_subdir)
+        codir = os.path.join(cdir, coeffs_subdir)
+        if not (os.path.isdir(fdir) and os.path.isdir(codir)):
+            continue
+        names = sorted(f for f in os.listdir(fdir) if f.endswith((".png", ".jpg", ".jpeg")))
+        coeffs = load_coeff_dir_clip(codir)
+        n = min(len(names), coeffs.shape[0])
+        if n < 2:
+            continue
+        frames = np.stack([read_rgb(os.path.join(fdir, f), (resolution, resolution))
+                           .astype(np.float32) / 127.5 - 1.0 for f in names[:n]])
+        clips.append({"name": clip_id, "frames": frames, "coeffs": coeffs[:n]})
+        if max_clips and len(clips) >= max_clips:
+            break
+    return clips

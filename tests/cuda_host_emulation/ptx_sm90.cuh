@@ -18,14 +18,6 @@
 
 namespace {
 
-// With EMULATION_EAGER_COPIES set, a cp.async is carried out when issued, the
-// earliest moment the hardware allows (for runs under a thread sanitizer:
-// a copy into a buffer another warp still reads then shows as a race).
-inline bool eager_copies() {
-  static const bool eager = std::getenv("EMULATION_EAGER_COPIES") != nullptr;
-  return eager;
-}
-
 inline void cp_async(void* dst, const void* src, int bytes, bool valid) {
   if (reinterpret_cast<uintptr_t>(dst) % bytes ||
       (valid && reinterpret_cast<uintptr_t>(src) % bytes)) {
@@ -33,23 +25,23 @@ inline void cp_async(void* dst, const void* src, int bytes, bool valid) {
     std::abort();
   }
   const emulation::Copy c{dst, src, bytes, valid};
-  if (eager_copies()) emulation::carry_out(c);
-  else emulation::open_group.push_back(c);
+  if (emulation::eager_copies) emulation::carry_out(c);
+  else emulation::current->open_group.push_back(c);
 }
 
 inline void cp_async_16(void* dst, const void* src, bool valid) { cp_async(dst, src, 16, valid); }
 inline void cp_async_4(void* dst, const void* src, bool valid) { cp_async(dst, src, 4, valid); }
 
 inline void cp_async_commit() {
-  emulation::groups.push_back(emulation::open_group);
-  emulation::open_group.clear();
+  emulation::current->groups.push_back(emulation::current->open_group);
+  emulation::current->open_group.clear();
 }
 
 template <int N>
 inline void cp_async_wait() {
-  while ((int)emulation::groups.size() > N) {
-    for (const auto& c : emulation::groups.front()) emulation::carry_out(c);
-    emulation::groups.pop_front();
+  while ((int)emulation::current->groups.size() > N) {
+    for (const auto& c : emulation::current->groups.front()) emulation::carry_out(c);
+    emulation::current->groups.pop_front();
   }
 }
 

@@ -2,7 +2,7 @@
 run on the CPU, against their plain versions.
 
 No CUDA compiler or card is needed: the kernel source is compiled with g++
-against ``tests/cuda_host_emulation/`` (a thread per CUDA thread, lane-exact
+against ``tests/cuda_host_emulation/`` (a fiber per CUDA thread, lane-exact
 emulations of ``ldmatrix``, ``mma.sync``, ``cp.async`` and the shuffles in
 place of ``csrc/ptx_sm90.cuh``) and its launchers are called through ctypes on
 CPU tensors. That holds what is easiest to get silently wrong in such a
@@ -18,6 +18,7 @@ kernels round P and dS to bf16 as operands and sum in another order.
 """
 
 import ctypes
+import platform
 import re
 import shutil
 import subprocess
@@ -31,6 +32,7 @@ from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
     flash_attention_fwd_plain,
 )
 from dyadic_interaction_modeling_tpu_torch.kernels.build import CSRC
+from tests.cuda_host_emulation.schedules import both_schedules
 
 EMULATION = Path(__file__).resolve().parent / "cuda_host_emulation"
 H = 2  # heads: a (B, L) key mask serves H consecutive rows
@@ -42,6 +44,8 @@ def lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to build the host emulation")
+    if platform.machine() != "x86_64":
+        pytest.skip("the host emulation switches fibers in x86-64 assembly")
     work = tmp_path_factory.mktemp("flash_mma_emulation")
     for name in ("kernels.h", "mma_tile.cuh"):
         shutil.copy(CSRC / name, work / name)
@@ -103,15 +107,20 @@ def _run(lib, rows, l, d, causal, mask_kind, strided, seed):
 
     m8 = None if mask is None else mask.to(torch.uint8)
     common = (rows, l, d, 1 if mask is None else H, causal, scale, *layout, None)
-    nan = float("nan")
-    o, dq, dk, dv = (torch.full(shape, nan).bfloat16() for _ in range(4))
-    lse, delta = torch.full((rows, l), nan), torch.full((rows, l), nan)
-    assert lib.flash_attention_mma_fwd_launch(
-        *map(_ptr, (store[0], store[1], store[2], m8, o, lse)), *common) == 0
-    # K3 takes the plain forward's o and lse, as chip_smoke.py feeds it
-    assert lib.flash_attention_mma_bwd_launch(
-        *map(_ptr, (store[0], store[1], store[2], as_stored(ro), store[3], rlse, m8, delta,
-                    dq, dk, dv)), *common) == 0
+
+    def launch():
+        nan = float("nan")
+        o, dq, dk, dv = (torch.full(shape, nan).bfloat16() for _ in range(4))
+        lse, delta = torch.full((rows, l), nan), torch.full((rows, l), nan)
+        assert lib.flash_attention_mma_fwd_launch(
+            *map(_ptr, (store[0], store[1], store[2], m8, o, lse)), *common) == 0
+        # K3 takes the plain forward's o and lse, as chip_smoke.py feeds it
+        assert lib.flash_attention_mma_bwd_launch(
+            *map(_ptr, (store[0], store[1], store[2], as_stored(ro), store[3], rlse, m8,
+                        delta, dq, dk, dv)), *common) == 0
+        return o, lse, dq, dk, dv, delta
+
+    o, lse, dq, dk, dv, delta = both_schedules(lib, launch)
     delta_ref = (do.float() * ro.float()).sum(-1)
     return ((as_rows(o), lse, as_rows(dq), as_rows(dk), as_rows(dv), delta),
             (ro, rlse, *refs, delta_ref), mask)

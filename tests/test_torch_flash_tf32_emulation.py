@@ -2,7 +2,7 @@
 the tensor cores) run on the CPU, against their plain versions.
 
 No CUDA compiler or card is needed: the kernel source is compiled with g++
-against ``tests/cuda_host_emulation/`` (a thread per CUDA thread, lane-exact
+against ``tests/cuda_host_emulation/`` (a fiber per CUDA thread, lane-exact
 emulations of ``cvt.rna.tf32.f32``, ``mma.sync.m16n8k8`` in TF32,
 ``cp.async`` and the shuffles in place of ``csrc/ptx_sm90.cuh``) and its
 launchers are called through ctypes on CPU tensors. That holds the fragment
@@ -19,6 +19,7 @@ block.
 """
 
 import ctypes
+import platform
 import re
 import shutil
 import subprocess
@@ -34,6 +35,7 @@ from dyadic_interaction_modeling_tpu_torch.kernels.attention import (
     flash_attention_fwd_plain,
 )
 from dyadic_interaction_modeling_tpu_torch.kernels.build import CSRC
+from tests.cuda_host_emulation.schedules import both_schedules
 
 EMULATION = Path(__file__).resolve().parent / "cuda_host_emulation"
 H = 2  # heads: a (B, L) key mask serves H consecutive rows (mask_div = H)
@@ -45,6 +47,8 @@ def lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ (C++20) to build the host emulation")
+    if platform.machine() != "x86_64":
+        pytest.skip("the host emulation switches fibers in x86-64 assembly")
     work = tmp_path_factory.mktemp("flash_tf32_emulation")
     for name in ("kernels.h", "mma_tile.cuh"):
         shutil.copy(CSRC / name, work / name)
@@ -98,13 +102,17 @@ def _kernels(lib, q, k, v, do, ro, rlse, mask, causal, scale):
     rows, l, d = q.shape
     m8 = None if mask is None else mask.to(torch.uint8)
     common = (rows, l, d, 1 if mask is None else H, causal, scale, None)
-    nan = float("nan")
-    o, dq, dk, dv = (torch.full((rows, l, d), nan) for _ in range(4))
-    lse, delta = torch.full((rows, l), nan), torch.full((rows, l), nan)
-    assert lib.flash_attention_fwd_launch(*map(_ptr, (q, k, v, m8, o, lse)), *common) == 0
-    assert lib.flash_attention_bwd_launch(
-        *map(_ptr, (q, k, v, ro, do, rlse, m8, delta, dq, dk, dv)), *common) == 0
-    return o, lse, dq, dk, dv, delta
+
+    def launch():
+        nan = float("nan")
+        o, dq, dk, dv = (torch.full((rows, l, d), nan) for _ in range(4))
+        lse, delta = torch.full((rows, l), nan), torch.full((rows, l), nan)
+        assert lib.flash_attention_fwd_launch(*map(_ptr, (q, k, v, m8, o, lse)), *common) == 0
+        assert lib.flash_attention_bwd_launch(
+            *map(_ptr, (q, k, v, ro, do, rlse, m8, delta, dq, dk, dv)), *common) == 0
+        return o, lse, dq, dk, dv, delta
+
+    return both_schedules(lib, launch)
 
 
 def _deltas(q, k, v, do, mask, causal, scale, lse):

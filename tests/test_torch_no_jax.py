@@ -56,7 +56,9 @@ def test_port_imports_with_jax_blocked():
         "utils.logging", "utils.seeding", "utils.schedules", "utils.observability",
         "utils.profiling", "utils.lmdb_lite", "render", "render.image_io", "render.config",
         "render.flow", "render.generator", "render.data", "render.inference",
-        "cli.render_inference", "cli.intuitive_control")} <= names
+        "cli.render_inference", "cli.intuitive_control", "postprocess",
+        "postprocess.smoothing", "serving.avatar", "serving.fused", "data.preprocessing",
+        "metrics.baselines", "metrics.eval_utils", "cli.preprocess")} <= names
 
 
 def test_entry_points_default_to_cuda():
