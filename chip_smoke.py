@@ -14,7 +14,8 @@ train_stage2 and test_biwi --data-root on BIWI files, the streaming audio
 front-end), then the PIRender inference path (FaceGenerator at full width,
 render_clip, the render_inference and intuitive_control twins), then the live
 avatar chain (the fused and the composable pipeline at bench.py's avatar
-shape), and time it all.
+shape), then PIRender's training (both stages, the render_train twin) and the
+``--mesh`` layouts on one card, and time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
 
@@ -231,7 +232,30 @@ line):
     call; each pipeline's push p50, frames/s, launches a round (K1 64, K2 6),
     peak memory and 3 traced rounds in the bench (bf16) and mixed (fp32
     warp) configs (``avatar_path``);
-32. the VQ attention at D = 48 and 96 by both routes (``attend`` and
+32. PIRender's training at full width (``RENDER_DEFAULTS``: 58-d
+    coefficients into the 73-d ``pre`` conv, 256 x 256), VGG19 at a seeded
+    random init, 4 scales, style 250 on the final loss: one warp step and one
+    gen step (``pretrain_warp_iteration`` 1) on the card and on the CPU, fp32
+    with TF32 off, at 1 pair, each step from the same weights: losses
+    within ``RT_LOSS_TOL`` relative, each step's gradients within
+    ``RT_GRAD_FACTOR`` times the distance the CPU's own move by when the
+    weights move by ``RT_SENSITIVITY_EPS`` of themselves (in the largest
+    error and in relative L2), and the share of elements whose updates
+    differ (a near-zero gradient's sign: 2 lr) within ``RT_GRAD_FACTOR``
+    times the CPU's own; the control, the gen step with TF32 on, must fail
+    both (``_rt_check``); then each stage at
+    ``RT_PAIRS`` pairs (8 images after the symmetric concat, the port's
+    choice: ``render_path``'s batch) timed in fp32 with TF32 off and on
+    (median of 10 steps between CUDA events after 3 warmups, images/s, peak
+    memory, 3 steps traced), K1-K4 at 0 a step; ``cli.render_train
+    --synthetic --resolution 256 --debug 3`` and ``cli.render_inference``
+    reading the checkpoint it wrote (``render_train_path``);
+33. ``cli.train_vq --synthetic --mesh data=1`` on the card (NCCL, a group
+    of one) against the same run without ``--mesh``: the best validation
+    loss within 1e-5 relative and the same K1-K4 launch counts;
+    ``MeshPlan.parse("data=2")`` on one card raises the device-count error
+    (``mesh_path``);
+34. the VQ attention at D = 48 and 96 by both routes (``attend`` and
     K2/K3), forward and backward, graph-timed at L = 256, 512, 768 and 1024
     in fp32 and bf16; then the ``kernels`` JSON line and, last, the device
     JSON line.
@@ -3723,6 +3747,316 @@ def avatar_path():
     return res
 
 
+RT_PAIRS, RT_REPS, RT_LR = 4, 10, 1e-4
+# the card against the CPU, fp32 with TF32 off, a step of each stage from the
+# same weights. The warp's bilinear sampling has a gradient that jumps where
+# a sampling point crosses a pixel edge, so a step's gradients move with the
+# flow's last digits: the CPU's own gradients, with every weight changed by
+# 1e-6 of itself, move about as far as the card's do (RT_SENSITIVITY_EPS);
+# the card is held within RT_GRAD_FACTOR times that, in the largest error
+# and in relative L2. A fresh Adam's step is lr times the sign of each
+# gradient, so the two sides' updates differ by 2 lr where a near-zero
+# gradient's sign differs and by rounding elsewhere: the share of the
+# stepped elements whose updates differ by more than RT_PARAM_WITHIN is held
+# within RT_GRAD_FACTOR times the CPU's own share after the same change of
+# the weights. The control: the gen step on the card with TF32 on must fail
+# both holds
+RT_LOSS_TOL, RT_SENSITIVITY_EPS, RT_GRAD_FACTOR = 1e-4, 1e-6, 2.0
+RT_PARAM_WITHIN = 1e-8
+RT_COEFF = 58
+
+
+def _rt_batch(pairs, seed):
+    """``pairs`` source / target pairs at 256 x 256 (smooth images, as
+    ``_render_inputs``) with 58-d windows of radius 13, a numpy batch."""
+    import numpy as np
+
+    g = torch.Generator().manual_seed(seed)
+    imgs = torch.nn.functional.interpolate(torch.rand(2 * pairs, 3, 16, 16, generator=g) * 2 - 1,
+                                           size=(RENDER_RES, RENDER_RES), mode="bilinear",
+                                           align_corners=False)
+    imgs = imgs.permute(0, 2, 3, 1).contiguous().numpy()
+    rng = np.random.default_rng(seed)
+    sem = rng.normal(0, 0.3, (2 * pairs, RT_COEFF, 2 * RENDER_RADIUS + 1)).astype(np.float32)
+    return {"source_image": imgs[:pairs], "target_image": imgs[pairs:],
+            "source_semantics": sem[:pairs], "target_semantics": sem[pairs:]}
+
+
+def _grad_distance(got, want):
+    """(largest error / largest gradient, relative L2 error, the leaf of the
+    largest error) between two lists of (name, gradient)."""
+    largest = max(float(g.abs().max()) for _, g in want)
+    worst = max((float((a - b).abs().max()), n) for (_, a), (n, b) in zip(got, want))
+    l2 = float(torch.cat([(a - b).flatten() for (_, a), (_, b) in zip(got, want)]).norm()
+               / torch.cat([b.flatten() for _, b in want]).norm())
+    return worst[0] / largest, l2, worst[1]
+
+
+def _rt_grads(trainer):
+    return [(n, p.grad.cpu()) for n, p in trainer.net.named_parameters() if p.grad is not None]
+
+
+def _rt_update(trainer, start, grads):
+    """What a step added to each parameter that it had a gradient for."""
+    sd = trainer.net.state_dict()
+    return {n: sd[n].cpu() - start[n] for n, _ in grads}
+
+
+def _update_off(got, want):
+    """(share of the elements whose updates differ by more than
+    RT_PARAM_WITHIN, largest difference)."""
+    d = torch.cat([(got[n] - v).abs().flatten() for n, v in want.items()])
+    return float((d > RT_PARAM_WITHIN).float().mean()), float(d.max())
+
+
+def _rt_sensitivity(sd, vgg, batch, root, pretrain):
+    """A step on the CPU (the warp stage when ``pretrain`` is 1, the gen
+    stage when 0) with every weight of the generator scaled by
+    1 + RT_SENSITIVITY_EPS * N(0, 1), seeded: its gradients and update."""
+    g = torch.Generator().manual_seed(5)
+    moved = {k: v * (1 + RT_SENSITIVITY_EPS * torch.randn(v.shape, generator=g))
+             if v.is_floating_point() else v for k, v in sd.items()}
+    trainer = _rt_trainer(moved, vgg, "cpu", pretrain, root)
+    trainer.optimize_parameters(batch)
+    grads = _rt_grads(trainer)
+    return grads, _rt_update(trainer, moved, grads)
+
+
+def _rt_check(sd, vgg, root):
+    """A warp step, then a gen step, of 1 pair on the CPU and on the card
+    from the same weights (the card's generator takes the CPU's before the
+    gen step, whose fresh Adam leaves nothing else behind): losses,
+    gradients and updates held as RT_* says, then the TF32 control.
+    Returns the errors and K1-K4 launches of the two card steps."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+
+    cpu = _rt_trainer(sd, vgg, "cpu", 1, os.path.join(root, "cpu"))
+    card = _rt_trainer(sd, vgg, "cuda", 1, os.path.join(root, "card"))
+    errs, launches, t_cpu = {}, {}, 0.0
+    for i, stage in enumerate(("warp", "gen")):
+        batch = _rt_batch(1, 80 + i)
+        start = {k: v.clone() for k, v in cpu.net.state_dict().items()}
+        card.net.load_state_dict(start)
+        t0 = time.perf_counter()
+        lc = cpu.optimize_parameters(batch)
+        t_cpu += time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        lg = card.optimize_parameters(batch)
+        torch.cuda.synchronize()
+        launches[f"check_{stage}_step"] = dict(kernels.LAUNCHES)
+        rel = {k: abs(lg[k] - v) / abs(v) for k, v in lc.items()}
+        errs[f"{stage}_loss_rel"] = rel
+        check(sorted(lg) == sorted(lc) and max(rel.values()) <= RT_LOSS_TOL,
+              f"render train {stage} step on the card vs the CPU: losses {lg} vs {lc}, "
+              f"largest rel err {max(rel.values()):.3g} (tol {RT_LOSS_TOL})")
+        gc, gg = _rt_grads(cpu), _rt_grads(card)
+        gerr, l2, worst = _grad_distance(gg, gc)
+        s_grads, s_update = _rt_sensitivity(start, vgg, batch, os.path.join(root, "s"), i ^ 1)
+        s_max, s_l2, _ = _grad_distance(s_grads, gc)
+        errs.update({f"{stage}_grad_rel": gerr, f"{stage}_grad_rel_l2": l2,
+                     f"{stage}_grad_worst": worst, f"{stage}_cpu_sensitivity_rel": s_max,
+                     f"{stage}_cpu_sensitivity_rel_l2": s_l2})
+        check([n for n, _ in gc] == [n for n, _ in gg]
+              and gerr <= RT_GRAD_FACTOR * s_max and l2 <= RT_GRAD_FACTOR * s_l2,
+              f"render train {stage} step's gradients on the card vs the CPU: largest "
+              f"error {gerr:.3g} of the largest gradient (at {worst}), relative L2 {l2:.3g}; "
+              f"the CPU's own after a {RT_SENSITIVITY_EPS:g} relative change of the weights: "
+              f"{s_max:.3g}, {s_l2:.3g} (tol {RT_GRAD_FACTOR:g}x)")
+        uc = _rt_update(cpu, start, gc)
+        off, umax = _update_off(_rt_update(card, start, gc), uc)
+        s_off, _ = _update_off(s_update, uc)
+        errs.update({f"{stage}_update_off_share": off, f"{stage}_update_max_abs": umax,
+                     f"{stage}_cpu_sensitivity_update_off_share": s_off})
+        check(off <= RT_GRAD_FACTOR * s_off, f"render train {stage} step's update on the card "
+              f"vs the CPU: {100 * off:.3f}% of the stepped elements differ by more than "
+              f"{RT_PARAM_WITHIN:g} (largest {umax:.3g}, lr {RT_LR:g}); the CPU's own after "
+              f"the same change of the weights: {100 * s_off:.3f}% (tol {RT_GRAD_FACTOR:g}x)")
+        if stage == "gen":  # the control: TF32 on fails both holds
+            flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                ctl = _rt_trainer(start, vgg, "cuda", 0, os.path.join(root, "ctl"))
+                ctl.optimize_parameters(batch)
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            c_max, c_l2, _ = _grad_distance(_rt_grads(ctl), gc)
+            c_off, _ = _update_off(_rt_update(ctl, start, gc), uc)
+            errs.update(control_tf32_grad_rel=c_max, control_tf32_grad_rel_l2=c_l2,
+                        control_tf32_update_off_share=c_off)
+            check((c_max > RT_GRAD_FACTOR * s_max or c_l2 > RT_GRAD_FACTOR * s_l2)
+                  and c_off > RT_GRAD_FACTOR * s_off,
+                  f"control: the gen step with TF32 on fails both holds: gradients' largest "
+                  f"error {c_max:.3g} (bound {RT_GRAD_FACTOR * s_max:.3g}), relative L2 "
+                  f"{c_l2:.3g} (bound {RT_GRAD_FACTOR * s_l2:.3g}); update "
+                  f"{100 * c_off:.3f}% off (bound {100 * RT_GRAD_FACTOR * s_off:.3f}%)")
+            del ctl
+    say(f"render train: 2 steps of 1 pair on the CPU (the reference) {t_cpu:.1f} s")
+    return errs, launches
+
+
+def _rt_trainer(sd, vgg, device, pretrain, save_dir):
+    from dyadic_interaction_modeling_tpu_torch.render.generator import FaceGenerator
+    from dyadic_interaction_modeling_tpu_torch.render.trainer import FaceTrainer
+
+    model = FaceGenerator(flame_coeff_nc=RT_COEFF, coeff_nc=73).to(device)
+    model.load_state_dict(sd, strict=True)
+    return FaceTrainer(model, pretrain_warp_iteration=pretrain, vgg_state_dict=vgg,
+                       base_lr=RT_LR, save_dir=save_dir)
+
+
+def _rt_timed(trainer, batch, what):
+    """One stage's step: median ms of RT_REPS between CUDA events, peak
+    memory, launches of one step, 3 steps traced."""
+    from dyadic_interaction_modeling_tpu_torch import kernels
+
+    ms = cuda_ms(lambda i: trainer.optimize_parameters(batch), RT_REPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    trainer.optimize_parameters(batch)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(all(v == 0 for v in launches.values()), f"render train {what} step launched no "
+          f"K1-K4: {launches}")
+    windows, top = _trace_steps(trainer.optimize_parameters, (batch,), f"render train {what}")
+    images = 2 * RT_PAIRS
+    say(f"render train {what} step, {RT_PAIRS} pairs ({images} images) at {RENDER_RES}x"
+        f"{RENDER_RES}, {CARD[-1]}: median {ms:.2f} ms -> {images / ms * 1e3:.1f} images/s, "
+        f"peak {peak:.0f} MiB, card busy {100 * windows['card']['busy_share']:.1f}% of 3 "
+        "traced steps")
+    return {"step_ms": ms, "images_per_s": images / ms * 1e3, "peak_mib": peak,
+            "launches": launches, "busy_share": windows["card"]["busy_share"],
+            "traced_windows": windows,
+            "top_kernels": [{"name": n[:120], "ms": t / 1e3, "launches": c}
+                            for n, t, c in top[:8]]}
+
+
+@phase
+def render_train_path():
+    """PIRender's FaceTrainer at full width, checked against the CPU, both
+    stages timed in fp32 with TF32 off and on, then the render_train twin at
+    256 x 256 and render_inference on its checkpoint."""
+    import shutil
+    import tempfile
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import render_inference, render_train
+    from dyadic_interaction_modeling_tpu_torch.render.generator import FaceGenerator
+    from dyadic_interaction_modeling_tpu_torch.render.perceptual import make_trunk
+    from dyadic_interaction_modeling_tpu_torch.render.trainer import LAYERS
+
+    torch.manual_seed(71)
+    sd = {k: v.clone() for k, v in FaceGenerator(flame_coeff_nc=RT_COEFF,
+                                                  coeff_nc=73).state_dict().items()}
+    torch.manual_seed(72)
+    vgg = {k: v.clone() for k, v in make_trunk("vgg19", LAYERS).state_dict().items()}
+    root = tempfile.mkdtemp(prefix="render_train_")
+    out = {"launches": {}}
+    try:
+        out["cpu_check"], out["launches"] = _rt_check(sd, vgg, root)
+        check(all(v == 0 for c in out["launches"].values() for v in c.values()),
+              f"render train steps launched no K1-K4: {out['launches']}")
+        # both stages timed, fp32 with TF32 off and on
+        batch_np = _rt_batch(RT_PAIRS, 90)
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        try:
+            for name, tf32 in (("fp32", False), ("tf32", True)):
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+                for stage, pretrain in (("warp", 10 ** 9), ("gen", 0)):
+                    trainer = _rt_trainer(sd, vgg, "cuda", pretrain, os.path.join(root, name))
+                    out[f"{stage}_{name}"] = _rt_timed(trainer, trainer.upload(batch_np),
+                                                       f"{stage} ({name})")
+                    out["launches"][f"{stage}_{name}_step"] = out[f"{stage}_{name}"]["launches"]
+                    del trainer
+                    torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        # the twin end to end at 256 x 256, and render_inference on its checkpoint
+        runs = {}
+        for name, main, argv in (
+                ("render_train", render_train.main,
+                 ["--synthetic", "--resolution", str(RENDER_RES), "--coeff-nc", "56",
+                  "--debug", "3", "--device", "cuda", "--save-path",
+                  os.path.join(root, "twin")]),
+                ("render_inference", render_inference.main,
+                 ["--synthetic", "--checkpoint", os.path.join(root, "twin", "step_3.pt"),
+                  "--out", os.path.join(root, "frames"), "--resolution", str(RENDER_RES),
+                  "--device", "cuda"])):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = main(argv)
+            torch.cuda.synchronize()
+            runs[name] = {"s": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES)}
+            out["launches"][name] = runs[name]["launches"]
+            say(f"{name}: {runs[name]['s']:.1f} s, launches {runs[name]['launches']}")
+            check(all(v == 0 for v in runs[name]["launches"].values()),
+                  f"{name} launched no K1-K4")
+            if name == "render_train":
+                check(got.iteration == 3 and os.path.exists(os.path.join(
+                    root, "twin", "step_3.pt")), "render_train --debug 3 took 3 steps and "
+                      "wrote step_3.pt")
+            else:
+                import numpy as np
+
+                n = len(os.listdir(os.path.join(root, "frames", "fake")))
+                check(n == 6 and bool(np.isfinite(got["fake_image"]).all()),
+                      f"render_inference read the twin's checkpoint: {n} finite frames of 6")
+        out["twins"] = runs
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+MESH_VQ = ["epochs", "2"]
+
+
+@phase
+def mesh_path():
+    """``cli.train_vq --synthetic --mesh data=1`` on the card (NCCL, a group
+    of one) against the same run without ``--mesh``: the best validation
+    rec_loss within 1e-5 relative, the same K1-K4 counts; the device-count
+    error of ``data=2`` on one card."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.cli import train_vq
+    from dyadic_interaction_modeling_tpu_torch.parallel import MeshPlan
+
+    root = tempfile.mkdtemp(prefix="mesh_")
+    runs = {}
+    try:
+        for name, extra in (("single", []), ("mesh_data=1", ["--mesh", "data=1"])):
+            save = os.path.join(root, name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            train_vq.main(["--synthetic", "--device", "cuda", "--save-path", save] + extra
+                          + MESH_VQ)
+            torch.cuda.synchronize()
+            with open(os.path.join(save, "scalars.jsonl")) as f:
+                vals = [r["value"] for r in map(_json.loads, f) if r["tag"] == "val/rec_loss"]
+            runs[name] = {"s": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                          "best_rec_loss": min(vals)}
+            say(f"train_vq --synthetic {' '.join(extra)}: {runs[name]['s']:.1f} s, best val "
+                f"rec_loss {runs[name]['best_rec_loss']:.6f}, launches {runs[name]['launches']}")
+        a, b = runs["single"], runs["mesh_data=1"]
+        rel = abs(a["best_rec_loss"] - b["best_rec_loss"]) / abs(a["best_rec_loss"])
+        check(rel <= 1e-5, f"train_vq --mesh data=1 (NCCL) best loss vs no mesh: rel err "
+              f"{rel:.3g} (tol 1e-5)")
+        check(a["launches"] == b["launches"], f"train_vq launches with and without --mesh: "
+              f"{b['launches']} vs {a['launches']}")
+        try:
+            MeshPlan.parse("data=2", "cuda")
+            check(False, "MeshPlan.parse('data=2') on one card raises")
+        except ValueError as e:
+            check("needs 2 devices" in str(e), f"MeshPlan.parse('data=2') on one card: {e}")
+        return {"runs": runs, "best_rel_err": rel}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 @phase
 def vq_attention_routes():
     """The VQ attention by both routes, forward and backward, graph-timed
@@ -3868,7 +4202,8 @@ def _flash_entry(name, line, which, tt, k23, by_path):
 
 
 def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k4, k1, k23,
-                 t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s, speech, render, avatar):
+                 t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s, speech, render, avatar,
+                 rt, mesh):
     self_, cross = t["self"], t["cross"]
     mean = {key: (self_[key] + cross[key]) / 2
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "graph_ms",
@@ -3897,7 +4232,9 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
              f"render_clip_{RENDER_T}_frames": render["launches"],
              **{f"render_files_{name}": r["launches"]
                 for name, r in render["files"]["runs"].items()},
-             **{f"avatar_{name}_round": r["launches"] for name, r in avatar["timed"].items()}}
+             **{f"avatar_{name}_round": r["launches"] for name, r in avatar["timed"].items()},
+             **{f"render_train_{name}": c for name, c in rt["launches"].items()},
+             **{f"mesh_train_vq_{name}": r["launches"] for name, r in mesh["runs"].items()}}
 
     def by_path(name, generate=None):
         out = {} if generate is None else generate
@@ -4009,7 +4346,8 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
         "codetalker_predict_runs_ms": speech["predict"]["runs_ms"],
         "codetalker_predict_motion_rel_err": speech["predict"]["motion_rel_err"],
         "speech_files": speech["files"], "audio_frontend": speech["frontend"],
-        "render": render, "avatar": {k: v for k, v in avatar.items() if k != "k2_case"}}
+        "render": render, "avatar": {k: v for k, v in avatar.items() if k != "k2_case"},
+        "render_train": {k: v for k, v in rt.items() if k != "launches"}, "mesh": mesh}
 
 
 def main() -> int:
@@ -4094,11 +4432,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     avatar = avatar_path()
     torch.cuda.empty_cache()
+    rt = render_train_path()
+    torch.cuda.empty_cache()
+    mesh = mesh_path()
+    torch.cuda.empty_cache()
     routes = vq_attention_routes()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_wide, mqa_ref,
                             mqa_wide_ref, train, train_ref, tt, vq, vq_ref, ft, ft_ref,
                             ft64, spk, spk_ref, rf, routes, *biwi.values(), *s2s.values(),
-                            *speech.values(), render, render_files, avatar):
+                            *speech.values(), render, render_files, avatar, rt, mesh):
         say(f"FAILED: {FAILURES}")
         return 1
     refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
@@ -4107,7 +4449,7 @@ def main() -> int:
             "codetalker_predict": speech["predict"]}
     say(json.dumps(kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf,
                                 k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi,
-                                s2s, speech, render, avatar)))
+                                s2s, speech, render, avatar, rt, mesh)))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,22 +3,30 @@
 Counterpart of ``dyadic_interaction_modeling_tpu/cli/common.py:13-49``
 (``get_parser``, ``load_config``; the reference's
 ``base/utilities.get_parser``): ``--config`` (a sectioned YAML, PyYAML
-needed), ``--synthetic``, ``--epochs``, ``--save-path``, ``--prefetch`` and
+needed), ``--synthetic``, ``--epochs``, ``--save-path``, ``--prefetch``,
+``--mesh`` (``parallel.MeshPlan``: ``training_mesh`` spawns the ranks, one
+process a device) and
 trailing ``KEY VALUE`` overrides, plus the port's ``--device`` (the card
-unless ``cpu`` is asked for). The JAX package's ``--mesh`` waits for the
-port of ``parallel/`` (ROADMAP.md, queue 1), and its ``setup``
-(compilation cache, logger) has no counterpart here.
+unless ``cpu`` is asked for). The JAX package's ``setup`` (compilation
+cache, logger) has no counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Iterable, Iterator, Optional
+import sys
+from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import CfgNode, load_cfg_from_cfg_file, merge_cfg_from_list
 from ..data.loader import PrefetchLoader, slm_batch_from_collated
+from ..parallel import MeshPlan, launch
+
+MESH_HELP = ("multi-device training layout: 'auto' (data parallel over every device), "
+             "'data=N', 'data=N,model=K' (data x tensor parallel), 'fsdp[=N]' "
+             "(parameters and moments sharded); one process a device, spawned here "
+             "(gloo with --device cpu); see parallel.MeshPlan")
 
 
 def get_parser(description: str = " ") -> argparse.ArgumentParser:
@@ -35,8 +43,25 @@ def get_parser(description: str = " ") -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda",
                         help="torch device; the kernels run on cuda, their plain "
                              "versions on cpu")
+    parser.add_argument("--mesh", type=str, default=None, help=MESH_HELP)
     parser.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE overrides")
     return parser
+
+
+def training_mesh(args, main: Callable, argv: Optional[Sequence[str]]
+                  ) -> Tuple[Optional[MeshPlan], Optional[int]]:
+    """(plan, code) for a CLI's ``--mesh``: the plan (None without the
+    flag), and, where this process spawned the ranks rather than being one,
+    the code ``main`` should return at once."""
+    plan = MeshPlan.parse(args.mesh, args.device)
+    return plan, launch(plan, main, sys.argv[1:] if argv is None else argv)
+
+
+def state_dict_fn(plan: Optional[MeshPlan], model) -> Optional[Callable]:
+    """For ``BestCheckpointKeeper.update``: the full state_dict of a
+    tensor-parallel or sharded model, which every rank gathers."""
+    return (lambda: plan.state_dict(model)) if plan is not None and plan.layout != "dp" \
+        else None
 
 
 def load_config(args, defaults_fn: Callable[[], CfgNode]) -> CfgNode:

@@ -30,8 +30,10 @@ files in the reference's layout, ``../data/vico_processed_30fps`` and
 ``../data/RLD_data.csv`` relative to the working directory, as the
 reference and the JAX package read them: the train split to train, the test
 split to validate. ``--vq-token-cache`` and ``--prefetch`` as in the
-``train_s2s_pretrain`` twin. The JAX CLI's ``--mesh`` waits for the port of
-``parallel/``.
+``train_s2s_pretrain`` twin. ``--mesh`` (JAX ``finetune_s2s_pretrain.py:92``)
+trains on several devices, one process each (``parallel.MeshPlan``;
+``--batch-size`` the global batch, each rank validating on the whole test
+split, rank 0 writing).
 """
 
 from __future__ import annotations
@@ -45,13 +47,13 @@ from ..data.loader import PaddedBatchLoader
 from ..data.synthetic import synthetic_vico_dataset
 from ..engine.pt_engine import (VQTokenCache, evaluate_finetune_epoch,
                                 make_slm_train_step, train_epoch)
-from ..engine.train_state import make_optimizer
+from ..engine.train_state import freeze, make_optimizer
 from ..metrics.reporting import print_metrics
 from ..models.slm import SLM_ONLY, SLMFT, SLMFT_FROZEN
 from ..utils.checkpoint import BestCheckpointKeeper, load_reference
-from ..utils.observability import MetricsWriter
+from ..utils.observability import run_writer
 from .common import get_parser as common_parser
-from .common import load_config, prefetched, slm_batches
+from .common import load_config, prefetched, slm_batches, state_dict_fn, training_mesh
 
 
 def get_parser():
@@ -100,6 +102,9 @@ def make_loaders(args, batch_size: int):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    plan, launched = training_mesh(args, main, argv)
+    if launched is not None:
+        return launched
     slm_cfg = load_config(args, slm_defaults)
     vq_cfg = vq_cfg_for(slm_cfg, args.synthetic)
 
@@ -107,9 +112,11 @@ def main(argv=None):
     model = SLMFT(slm_cfg, vq_cfg)
     load_weights(model, args.speaker_vq, args.listener_vq, args.pretrained)
     model = model.to(args.device)
+    freeze(model, SLMFT_FROZEN)
+    stepped = plan.shard_state(model) if plan else model
     optimizer = make_optimizer(model, args.lr, args.weight_decay, SLMFT_FROZEN)
     amp = torch.bfloat16 if args.dtype == "bfloat16" else None
-    step = make_slm_train_step(model, optimizer, args.clip_norm, amp,
+    step = make_slm_train_step(stepped, optimizer, args.clip_norm, amp,
                                with_vq_tokens=args.vq_token_cache)
     cache = VQTokenCache(model, amp) if args.vq_token_cache else None
     train_loader, val_loader = make_loaders(args, args.batch_size)
@@ -117,13 +124,13 @@ def main(argv=None):
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     save_dir = args.save_path or "./runs_vico_ft/model"
     keeper = BestCheckpointKeeper(save_dir)
-    writer = MetricsWriter(save_dir, hparams=slm_cfg)
+    writer = run_writer(save_dir, hparams=slm_cfg)
     try:
         for epoch in range(slm_cfg.get("epochs", 10)):
             train_loader.set_epoch(epoch)
             model.train()
-            logs = train_epoch(slm_batches(train_loader, args.device, cache=cache), step,
-                               gen, epoch)
+            batches = slm_batches(train_loader, args.device, cache=cache)
+            logs = train_epoch(plan.batches(batches) if plan else batches, step, gen, epoch)
             model.eval()
             y_true, y_pred, xs, _ = evaluate_finetune_epoch(
                 model, slm_batches(val_loader, args.device, with_names=True), gen, amp)
@@ -135,7 +142,7 @@ def main(argv=None):
             writer.add_scalars({k: float(v) for k, v in m.items() if np.ndim(v) == 0},
                                epoch + 1, prefix="val/")
             writer.add_scalar("learning_rate", args.lr, epoch + 1)
-            if keeper.update(fd, model):
+            if keeper.update(fd, model, state_dict_fn(plan, model)):
                 print(f"epoch {epoch}: new best FD {fd:.4f}", flush=True)
     finally:
         writer.close()

@@ -21,8 +21,9 @@ The run record goes beside the checkpoint (``utils.observability``, the JAX
 CLI's tags): ``train/loss`` (the token branch's last step), ``val/loss`` and
 ``learning_rate`` each epoch in ``scalars.jsonl``, and ``hparams.json``.
 Data: ``finetune_s2s_pretrain.make_loaders`` (``--synthetic``, or the ViCo
-files under ``../data``). The JAX CLI's ``--mesh`` waits for the port of
-``parallel/``.
+files under ``../data``). ``--mesh`` (JAX ``train_s2s.py:60``, ``:124``)
+trains both branches on several devices, one process each
+(``parallel.MeshPlan``; ``--batch-size`` the global batch, rank 0 writing).
 """
 
 from __future__ import annotations
@@ -35,12 +36,12 @@ from ..config import lg_vq_cfg, listener_generator_defaults
 from ..engine.s2s_engine import (evaluate_continuous_epoch, evaluate_epoch,
                                  make_continuous_train_step, make_lg_train_step,
                                  train_continuous_epoch, train_epoch)
-from ..engine.train_state import make_optimizer
+from ..engine.train_state import freeze, make_optimizer
 from ..models.listener_generator import LG_FROZEN, ContinuousSeq2Seq, ListenerGenerator
 from ..utils.checkpoint import BestCheckpointKeeper
-from ..utils.observability import MetricsWriter
+from ..utils.observability import run_writer
 from .common import get_parser as common_parser
-from .common import load_config
+from .common import load_config, state_dict_fn, training_mesh
 from .finetune_s2s_pretrain import make_loaders
 
 
@@ -67,30 +68,35 @@ def get_parser():
     return parser
 
 
-def _main_continuous(args, cfg) -> int:
+def _sharded(plan, batches):
+    return plan.batches(batches) if plan else batches
+
+
+def _main_continuous(args, cfg, plan) -> int:
     """The continuous branch (x_engine.train_continuous_epoch): the best
     validation MSE is kept."""
     torch.manual_seed(args.seed)
     model = ContinuousSeq2Seq(cfg, dim_in=56).to(args.device)
+    stepped = plan.shard_state(model) if plan else model
     step = make_continuous_train_step(
-        model, make_optimizer(model, args.lr, args.weight_decay), args.clip_norm)
+        stepped, make_optimizer(model, args.lr, args.weight_decay), args.clip_norm)
     train_loader, val_loader = make_loaders(args, args.batch_size)
     save_dir = args.save_path or "./runs_s2s_cont/model"
     keeper = BestCheckpointKeeper(save_dir)
-    writer = MetricsWriter(save_dir, hparams=cfg)
+    writer = run_writer(save_dir, hparams=cfg)
     try:
         for epoch in range(cfg.get("epochs", 10)):
             train_loader.set_epoch(epoch)
             model.train()
-            train_continuous_epoch((b[:3] for b in lg_batches(train_loader, args.device)),
-                                   step, epoch)
+            train_continuous_epoch(_sharded(plan, (b[:3] for b in lg_batches(
+                train_loader, args.device))), step, epoch)
             model.eval()
             val = evaluate_continuous_epoch(model, (b[:3] for b in lg_batches(val_loader,
                                                                                args.device)))
             print(f"epoch {epoch}: val MSE {val:.5f}", flush=True)
             writer.add_scalar("val/loss", val, epoch + 1)
             writer.add_scalar("learning_rate", args.lr, epoch + 1)
-            if keeper.update(val, model):
+            if keeper.update(val, model, state_dict_fn(plan, model)):
                 print(f"epoch {epoch}: new best {val:.5f}", flush=True)
     finally:
         writer.close()
@@ -99,24 +105,30 @@ def _main_continuous(args, cfg) -> int:
 
 def main(argv=None) -> int:
     args = get_parser().parse_args(argv)
+    plan, launched = training_mesh(args, main, argv)
+    if launched is not None:
+        return launched
     cfg = load_config(args, listener_generator_defaults)
     if args.continuous:
-        return _main_continuous(args, cfg)
+        return _main_continuous(args, cfg, plan)
     vq_cfg = lg_vq_cfg(cfg, args.synthetic)
     torch.manual_seed(args.seed)
     model = ListenerGenerator(cfg, vq_cfg, vq_cfg, with_ids=args.use_ids).to(args.device)
-    step = make_lg_train_step(model, make_optimizer(model, args.lr, args.weight_decay,
-                                                    LG_FROZEN),
+    freeze(model, LG_FROZEN)
+    stepped = plan.shard_state(model) if plan else model
+    step = make_lg_train_step(stepped, make_optimizer(model, args.lr, args.weight_decay,
+                                                      LG_FROZEN),
                               args.clip_norm, args.use_ids)
     train_loader, val_loader = make_loaders(args, args.batch_size)
     save_dir = args.save_path or "./runs_s2s/model"
     keeper = BestCheckpointKeeper(save_dir)
-    writer = MetricsWriter(save_dir, hparams=cfg)
+    writer = run_writer(save_dir, hparams=cfg)
     try:
         for epoch in range(cfg.get("epochs", 10)):
             train_loader.set_epoch(epoch)
             model.train()
-            loss = train_epoch(lg_batches(train_loader, args.device), step, epoch)
+            loss = train_epoch(_sharded(plan, lg_batches(train_loader, args.device)), step,
+                               epoch)
             model.eval()
             val = evaluate_epoch(model, lg_batches(val_loader, args.device), args.use_ids)
             print(f"epoch {epoch}: train loss {loss:.4f} val loss {val['loss']:.4f} "
@@ -124,7 +136,7 @@ def main(argv=None) -> int:
             writer.add_scalar("train/loss", loss, epoch + 1)
             writer.add_scalar("val/loss", val["loss"], epoch + 1)
             writer.add_scalar("learning_rate", args.lr, epoch + 1)
-            if keeper.update(val["loss"], model):
+            if keeper.update(val["loss"], model, state_dict_fn(plan, model)):
                 print(f"epoch {epoch}: new best val {val['loss']:.4f}", flush=True)
     finally:
         writer.close()

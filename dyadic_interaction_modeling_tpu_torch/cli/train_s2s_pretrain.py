@@ -28,8 +28,12 @@ read them), split 95/5 by conversation (``candor_split``).
 ``--vq-token-cache`` tokenizes each clip once with the frozen VQs and reuses
 the codes in every later epoch (``engine.pt_engine.VQTokenCache``; the same
 codes, the VQ encoders and K4 run only in the first epoch); ``--prefetch N``
-reads and collates N batches ahead on a background thread. The JAX CLI's
-``--mesh`` waits for the port of ``parallel/``.
+reads and collates N batches ahead on a background thread. ``--mesh``
+(JAX ``train_s2s_pretrain.py:111``) trains on several devices, one process
+each (``parallel.MeshPlan``): ``--batch-size`` stays the global batch and
+each rank steps its slice, so InfoNCE contrasts the clips of a rank's slice
+and the masking noise is drawn per rank, as under the reference's DDP; every
+rank validates on the whole split and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -43,12 +47,12 @@ from ..data.datasets import CandorDataset, candor_split
 from ..data.loader import PaddedBatchLoader
 from ..data.synthetic import synthetic_candor_dataset
 from ..engine.pt_engine import VQTokenCache, evaluate_epoch, make_slm_train_step, train_epoch
-from ..engine.train_state import make_optimizer
+from ..engine.train_state import freeze, make_optimizer
 from ..models.slm import SLM, SLM_FROZEN
-from ..utils.checkpoint import load_reference
-from ..utils.observability import MetricsWriter
+from ..utils.checkpoint import BestCheckpointKeeper, load_reference
+from ..utils.observability import run_writer
 from .common import get_parser as common_parser
-from .common import load_config, prefetched, slm_batches
+from .common import load_config, prefetched, slm_batches, state_dict_fn, training_mesh
 
 VAL_KEYS = ("l_ce_s", "l_ce_l", "l_cont_s", "l_cont_l", "nce")
 
@@ -94,6 +98,9 @@ def make_loaders(args, batch_size: int):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    plan, launched = training_mesh(args, main, argv)
+    if launched is not None:
+        return launched
     slm_cfg = load_config(args, slm_defaults)
     vq_cfg = vq_cfg_for(slm_cfg, args.synthetic)
 
@@ -101,9 +108,11 @@ def main(argv=None):
     model = SLM(slm_cfg, vq_cfg)
     load_pretrained_vqs(model, args.speaker_vq, args.listener_vq)
     model = model.to(args.device)
+    freeze(model, SLM_FROZEN)
+    stepped = plan.shard_state(model) if plan else model
     optimizer = make_optimizer(model, args.lr, args.weight_decay, SLM_FROZEN)
     amp = torch.bfloat16 if args.dtype == "bfloat16" else None
-    step = make_slm_train_step(model, optimizer, args.clip_norm, amp,
+    step = make_slm_train_step(stepped, optimizer, args.clip_norm, amp,
                                with_vq_tokens=args.vq_token_cache)
     cache = VQTokenCache(model, amp) if args.vq_token_cache else None
     train_loader, val_loader = make_loaders(args, args.batch_size)
@@ -111,14 +120,14 @@ def main(argv=None):
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     save_path = args.save_path or "./runs_pretrain/model"
     os.makedirs(save_path, exist_ok=True)
-    writer = MetricsWriter(save_path, hparams=slm_cfg)
-    best = float("inf")
+    writer = run_writer(save_path, hparams=slm_cfg)
+    keeper = BestCheckpointKeeper(save_path)
     try:
         for epoch in range(slm_cfg.get("epochs", 10)):
             train_loader.set_epoch(epoch)
             model.train()
-            logs = train_epoch(slm_batches(train_loader, args.device, cache=cache), step,
-                               gen, epoch)
+            batches = slm_batches(train_loader, args.device, cache=cache)
+            logs = train_epoch(plan.batches(batches) if plan else batches, step, gen, epoch)
             model.eval()
             val = evaluate_epoch(model, slm_batches(val_loader, args.device), gen, amp)
             val_loss = sum(val[k] for k in VAL_KEYS)
@@ -127,9 +136,7 @@ def main(argv=None):
             writer.add_scalars(val, epoch + 1, prefix="val/")
             writer.add_scalar("val/loss", val_loss, epoch + 1)
             writer.add_scalar("learning_rate", args.lr, epoch + 1)
-            if val_loss < best:
-                best = val_loss
-                torch.save(model.state_dict(), os.path.join(save_path, "best_model.pt"))
+            if keeper.update(val_loss, model, state_dict_fn(plan, model)):
                 print(f"epoch {epoch}: new best {val_loss:.4f}", flush=True)
     finally:
         writer.close()

@@ -36,8 +36,11 @@ the run stops with both widths named (ROADMAP.md queue 3).
 Reference quirk, kept: AdamW runs with torch's default weight decay 0.01,
 not the config's 0.002 (train_vq.py:112); ``adamw_config_weight_decay True``
 takes the config's. Trailing ``KEY VALUE`` pairs override the config
-(``epochs``, ``base_lr``, ``batch_size``, widths). The JAX CLI's ``--mesh``
-waits for the port of ``parallel/``.
+(``epochs``, ``base_lr``, ``batch_size``, widths). ``--mesh`` (JAX
+``train_vq.py:109``) trains on several devices, one process each
+(``parallel.MeshPlan``): ``batch_size`` stays the global batch, each rank
+steps its slice of it, every rank validates on the whole validation set,
+and rank 0 writes ``best_model.pt`` and the run record.
 """
 
 from __future__ import annotations
@@ -53,9 +56,9 @@ from ..engine.train_state import make_optimizer
 from ..engine.vq_engine import make_vq_eval_step, make_vq_train_step, train_epoch, validate
 from ..models import get_model
 from ..utils.checkpoint import BestCheckpointKeeper
-from ..utils.observability import MetricsWriter
+from ..utils.observability import run_writer
 from .common import get_parser as common_parser
-from .common import load_config, prefetched
+from .common import load_config, prefetched, state_dict_fn, training_mesh
 
 MOTION_DIM = 56
 
@@ -111,15 +114,19 @@ def _batches(loader, device):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    plan, launched = training_mesh(args, main, argv)
+    if launched is not None:
+        return launched
     cfg = load_config(args, _defaults)
     audio_visual = cfg.in_dim > MOTION_DIM
     train_ds, val_ds = build_datasets(cfg, args.synthetic, audio_visual)
     torch.manual_seed(cfg.manual_seed)
     model = get_model(cfg).to(args.device)
+    stepped = plan.shard_state(model) if plan else model
     # train_vq.py:112 passes no weight_decay to AdamW (torch's default 0.01)
     wd = cfg.weight_decay if cfg.adamw_config_weight_decay else 0.01
     optimizer = make_optimizer(model, cfg.base_lr, wd)
-    step = make_vq_train_step(model, optimizer, cfg.quant_loss_weight, audio_visual)
+    step = make_vq_train_step(stepped, optimizer, cfg.quant_loss_weight, audio_visual)
     eval_step = make_vq_eval_step(model, cfg.quant_loss_weight, audio_visual)
     train_loader = prefetched(PaddedBatchLoader(train_ds, cfg.batch_size, shuffle=True,
                                                 collate=vq_collate), args.prefetch)
@@ -127,12 +134,13 @@ def main(argv=None):
                                    collate=vq_collate)
     save_dir = args.save_path or "./runs_vq/model"
     keeper = BestCheckpointKeeper(save_dir)
-    writer = MetricsWriter(save_dir, hparams=cfg)
+    writer = run_writer(save_dir, hparams=cfg)
     steps_per_epoch = len(train_ds) // max(1, cfg.batch_size)
     try:
         for epoch in range(cfg.epochs):
             train_loader.set_epoch(epoch)
-            logs = train_epoch(_batches(train_loader, args.device), step, epoch,
+            batches = _batches(train_loader, args.device)
+            logs = train_epoch(plan.batches(batches) if plan else batches, step, epoch,
                                cfg.print_freq, writer=writer,
                                step_offset=epoch * steps_per_epoch, lr=cfg.base_lr)
             val = validate(_batches(val_loader, args.device), eval_step)
@@ -142,7 +150,7 @@ def main(argv=None):
                 if k in logs:
                     writer.add_scalar(f"train/{k}", logs[k], epoch + 1)
                 writer.add_scalar(f"val/{k}", val[k], epoch + 1)
-            if keeper.update(val["rec_loss"], model):
+            if keeper.update(val["rec_loss"], model, state_dict_fn(plan, model)):
                 print(f"epoch {epoch}: new best rec_loss {val['rec_loss']:.4f}", flush=True)
     finally:
         writer.close()

@@ -9,8 +9,9 @@ learned ``PositionEmbedding`` (base_models.py:248-256), FaceFormer's
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -30,6 +31,27 @@ def sinusoid_table(max_len: int, d_model: int, dtype=torch.float32,
     return torch.as_tensor(pe, dtype=dtype, device=device)
 
 
+_ROW_OFFSET = [0]
+
+
+@contextlib.contextmanager
+def batch_row_offset(offset: int) -> Iterator[None]:
+    """Within it, ``PositionalEncoding``'s ``batch`` mode gives row ``b``
+    the encoding of position ``offset + b``: a rank holding rows ``[offset,
+    offset + B)`` of a global batch (``parallel.MeshPlan.batches``) encodes
+    them as the whole batch does in one process.
+
+    The offset is process-wide state owned by the layer above:
+    ``MeshPlan.batches`` holds it across each ``yield``, so it covers the
+    step a training loop runs on the slice it was given, and nothing else
+    of this module sets it."""
+    before, _ROW_OFFSET[0] = _ROW_OFFSET[0], offset
+    try:
+        yield
+    finally:
+        _ROW_OFFSET[0] = before
+
+
 class PositionalEncoding(nn.Module):
     """Sinusoidal PE, bug-compatible with the reference.
 
@@ -37,7 +59,8 @@ class PositionalEncoding(nn.Module):
     reference state_dict loads with ``strict=True``. Modes:
 
     * ``batch`` (the reference quirk): row ``b`` of a batch-first input gets
-      the encoding of position ``b`` on every frame;
+      the encoding of position ``b`` on every frame (``b`` counted from
+      ``batch_row_offset``, 0 outside it);
     * ``single``: every row gets position 0 (the reference encoding one
       sample at a time);
     * ``time``: the conventional per-frame encoding.
@@ -54,7 +77,8 @@ class PositionalEncoding(nn.Module):
         if mode == "single":
             return x + pe[0][None, None, :]
         if mode == "batch":
-            return x + pe[: x.shape[0], None, :]
+            off = _ROW_OFFSET[0]
+            return x + pe[off: off + x.shape[0], None, :]
         raise ValueError(f"unknown positional mode {mode!r}")
 
 

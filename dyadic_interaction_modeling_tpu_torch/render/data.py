@@ -1,26 +1,30 @@
-"""PIRender's inference data (reference ``Pirender/data/vox_dataset.py``,
+"""PIRender's data (reference ``Pirender/data/vox_dataset.py``,
 ``vox_video_dataset.py``).
 
-Counterpart of the inference side of
-``dyadic_interaction_modeling_tpu/render/data.py``, numpy in and numpy out,
-images (H, W, 3) in [-1, 1]:
+Counterpart of ``dyadic_interaction_modeling_tpu/render/data.py``, numpy in
+and numpy out, images (H, W, 3) in [-1, 1]:
 
 * ``semantic_window``: the coefficient window of radius ``semantic_radius``
   around a frame, clamped at the clip's ends -> (C, 2r + 1),
 * ``FramePairDataset`` / ``synthetic_render_dataset``: source and target
   frames of one clip with their windows,
 * ``VoxLmdbDataset`` / ``VoxVideoDataset``: the reference's prepared-VoxCeleb
-  LMDB (``utils.lmdb_lite``), item for item as the JAX package draws them
-  from Python's ``random.Random(seed)``,
+  LMDB (``utils.lmdb_lite``),
+* ``VoxLMDirDataset``: the reference's ViCo render-finetune layout (frame
+  directories and a coefficient pickle a clip),
 * ``emoca_to_coeff3dmm``, ``write_vox_lmdb`` (that LMDB layout) and
-  ``load_coeff_dir_clip`` (an exported EMOCA coefficient directory).
-
+  ``load_coeff_dir_clip`` (an exported EMOCA coefficient directory),
 * ``load_clip_dirs``: rendered clips on disk (frames and an exported
   coefficient directory a clip) as ``FramePairDataset`` clips.
 
+The training datasets' ``batches(batch_size, steps)`` yield dicts of numpy
+arrays stacked as the JAX package stacks them (images (B, H, W, 3),
+windows (B, C, 2r + 1)), item for item as it draws them from Python's
+``random.Random(seed)``; ``render.trainer.FaceTrainer`` uploads a batch once
+and permutes its images to NCHW.
+
 PNG frames go through ``render.image_io``; JPEG frames and resizing through
-Pillow. The training side (the datasets' ``batches``, ``VoxLMDirDataset``)
-comes with the renderer's trainer.
+Pillow.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import os
 import random
 from io import BytesIO
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
@@ -73,6 +77,17 @@ class FramePairDataset:
             "source_semantics": semantic_window(clip["coeffs"], i, self.radius),
             "target_semantics": semantic_window(clip["coeffs"], j, self.radius),
         }
+
+    def batches(self, batch_size: int, steps: int) -> Iterator[Dict[str, np.ndarray]]:
+        return stacked_batches(self, batch_size, steps)
+
+
+def stacked_batches(ds, batch_size: int, steps: int) -> Iterator[Dict[str, np.ndarray]]:
+    """``steps`` batches of ``batch_size`` items at indices drawn from the
+    dataset's own ``rng``, each key stacked (JAX ``render/data.py:60``)."""
+    for _ in range(steps):
+        items = [ds[ds.rng.randrange(len(ds))] for _ in range(batch_size)]
+        yield {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
 def synthetic_render_dataset(n_clips: int = 2, frames_per_clip: int = 8,
@@ -161,6 +176,9 @@ class VoxLmdbDataset:
             "target_semantics": self._semantics(coeffs, j),
         }
 
+    def batches(self, batch_size: int, steps: int) -> Iterator[Dict[str, np.ndarray]]:
+        return stacked_batches(self, batch_size, steps)
+
 
 class VoxVideoDataset(VoxLmdbDataset):
     """Whole-video reenactment data over the prepared-VoxCeleb LMDB
@@ -228,6 +246,116 @@ class VoxVideoDataset(VoxLmdbDataset):
                 src_item["video_name"]))[0] + "_to_" + name)
         return {"source_image": source_image, "target_images": target_images,
                 "target_semantics": semantics, "video_name": out_name}
+
+
+class VoxLMDirDataset:
+    """The reference's ViCo/LM render-finetune layout
+    (``Pirender/data/vox_dataset.py:21-168``, ``VoxDataset_LM`` and the
+    mode_split=2 branch of ``VoxDataset``): a frame directory a clip under
+    ``vids_root`` and a ``{clip}.pkl`` coefficient dict a clip under
+    ``feat_root`` ({frame_key: (C,) vector}, read in sorted-key order,
+    vox_dataset.py:145). As JAX ``render/data.py:254-375``:
+
+    * raw rows are [pose(6), exp(...)], reordered to [exp, pose] or, with
+      ``decapirender`` (face.yaml:87 uses 1), [exp, zeros(2), pose], 58-d
+      (vox_dataset.py:149-153);
+    * quirk: with ``semantic_radius == 1`` (face.yaml:78) the 3-frame window
+      is tiled x27 into 81 frames (vox_dataset.py:157-158);
+    * the second frame is uniform over the indices at least
+      ``minimal_sample_distance`` away from the first (vox_dataset.py:134-138;
+      none left is a ValueError);
+    * the person list is repeated ``multiplier`` times (vox_dataset.py:66);
+    * ``frame_dir_prefix`` maps a pickle's name to its frame directory
+      (``vid_vico_videos_`` under mode_split=2).
+
+    Frames are read at ``resolution``: a PNG of that size by
+    ``render.image_io``, anything else through Pillow (bilinear resize, as
+    JAX's)."""
+
+    def __init__(self, vids_root: str, feat_root: str, resolution: int = 256,
+                 semantic_radius: int = 1, decapirender: bool = True,
+                 minimal_sample_distance: int = 1, multiplier: int = 100,
+                 frame_dir_prefix: str = "", seed: int = 0):
+        self.vids_root = vids_root
+        self.feat_root = feat_root
+        self.resolution = resolution
+        self.radius = semantic_radius
+        self.decapirender = decapirender
+        self.min_dist = minimal_sample_distance
+        self.frame_dir_prefix = frame_dir_prefix
+        all_feats = sorted(f for f in os.listdir(feat_root) if f.endswith(".pkl"))
+        if not all_feats:
+            raise ValueError(f"no .pkl coefficient files under {feat_root}")
+        person_ids = [f[: -len(".pkl")] for f in all_feats]
+        self.pers2feats = {p: [f for f in all_feats if f.startswith(p)] for p in person_ids}
+        self.person_ids = sorted(set(person_ids)) * multiplier
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.person_ids)
+
+    def _frame_dir(self, feat_name: str) -> str:
+        return os.path.join(self.vids_root, self.frame_dir_prefix + feat_name[: -len(".pkl")])
+
+    def _load_coeffs(self, feat_name: str) -> np.ndarray:
+        import pickle
+
+        with open(os.path.join(self.feat_root, feat_name), "rb") as f:
+            coeff = pickle.load(f)
+        rows = np.stack([v for _, v in sorted(coeff.items())], axis=0)
+        parts = ([rows[:, 6:], np.zeros((rows.shape[0], 2), rows.dtype), rows[:, :6]]
+                 if self.decapirender else [rows[:, 6:], rows[:, :6]])
+        return np.concatenate(parts, axis=1).astype(np.float32)
+
+    def _select_frames(self, n: int):
+        first = self.rng.randrange(n)
+        valid = list(range(max(0, first - self.min_dist))) + \
+            list(range(min(n, first + self.min_dist + 1), n))
+        if not valid:
+            raise ValueError(f"minimal_sample_distance {self.min_dist} leaves no valid "
+                             f"second frame in a {n}-frame clip")
+        return first, self.rng.choice(valid)
+
+    def _load_image(self, path: str) -> np.ndarray:
+        size = (self.resolution, self.resolution)
+        with open(path, "rb") as f:
+            data = f.read()
+        img = None
+        if data[:8] == b"\x89PNG\r\n\x1a\n":
+            img = decode_rgb(data)
+            if img.shape[1::-1] != size:
+                img = None
+        if img is None:
+            image = pillow().open(BytesIO(data)).convert("RGB")
+            if image.size != size:
+                image = image.resize(size, pillow().BILINEAR)
+            img = np.asarray(image)
+        return img.astype(np.float32) / 127.5 - 1.0
+
+    def _semantic(self, coeffs: np.ndarray, frame: int) -> np.ndarray:
+        win = semantic_window(coeffs, frame, self.radius)  # (C, 2r+1)
+        if self.radius == 1:
+            win = np.concatenate([win] * 27, axis=1)
+        return win
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        feat = self.rng.choice(self.pers2feats[self.person_ids[index]])
+        coeffs = self._load_coeffs(feat)
+        fdir = self._frame_dir(feat)
+        names = sorted(os.listdir(fdir))
+        # frames follow the frame listing (vox_dataset.py:113-115), clamped to
+        # the coefficient length so a short pickle indexes safely
+        n = min(len(names), coeffs.shape[0])
+        i, j = self._select_frames(n)
+        return {
+            "source_image": self._load_image(os.path.join(fdir, names[i])),
+            "target_image": self._load_image(os.path.join(fdir, names[j])),
+            "source_semantics": self._semantic(coeffs, i),
+            "target_semantics": self._semantic(coeffs, j),
+        }
+
+    def batches(self, batch_size: int, steps: int) -> Iterator[Dict[str, np.ndarray]]:
+        return stacked_batches(self, batch_size, steps)
 
 
 def emoca_to_coeff3dmm(emoca: np.ndarray,

@@ -17,11 +17,11 @@ from .avatar import (
     StreamingSmoother,
 )
 from .fused import FusedAvatarPipeline
-from .pool import StreamingSessionPool
+from .pool import MeshSessionPool, StreamingSessionPool
 from .speaker import StreamingSpeakerSession
 from .streaming import StreamingListenerSession
 
 __all__ = ["FusedAvatarPipeline", "StreamingAudioFrontend", "StreamingAvatarPipeline",
            "StreamingCoeffDecoder", "StreamingListenerSession", "StreamingRenderer",
-           "StreamingSemanticWindower", "StreamingSessionPool", "StreamingSmoother",
+           "MeshSessionPool", "StreamingSemanticWindower", "StreamingSessionPool", "StreamingSmoother",
            "StreamingSpeakerSession"]

@@ -24,8 +24,14 @@ goes to K1 as a (P, L) key mask (``pos <= t_dec[slot]`` for the self step,
 ``pos < t_ctx[slot]`` for the cross step, ``t=None``), so one K1 launch a
 layer and step serves every slot. No cache is gathered or copied. Each slot
 samples from its own ``torch.Generator``, seeded at ``join``, as a solo
-session seeded alike. The JAX package's ``mesh=`` waits for the port of
-``parallel/`` (ROADMAP.md, queue 1 item 7).
+session seeded alike.
+
+``mesh=`` (JAX ``pool.py:75-120``, where the pool axis is sharded over a
+mesh's ``data`` axis) takes a sequence of devices: the slots split evenly
+over them, each device holding a replica of the model and the caches of its
+slots (a ``StreamingSessionPool`` of ``capacity / len(mesh)``). Slots are
+independent, so no device talks to another, and a slot's codes are those of
+``mesh=None``; results come back on the first device.
 
 Typical host loop::
 
@@ -39,6 +45,7 @@ Typical host loop::
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -57,9 +64,15 @@ class StreamingSessionPool:
     filter_frac / greedy: the sampling controls of ``generate_tokens``
     (pool-wide)."""
 
+    def __new__(cls, model: SLMFT, *, mesh: Optional[Sequence] = None, **kwargs):
+        if mesh is not None:  # one pool a device, composed by MeshSessionPool
+            return MeshSessionPool(model, mesh=mesh, **kwargs)
+        return super().__new__(cls)
+
     def __init__(self, model: SLMFT, *, capacity: int = 8, chunk: int = 8,
                  max_frames: int = 1024, max_tokens: Optional[int] = None,
-                 temperature: float = 1.0, filter_frac: float = 0.1, greedy: bool = False):
+                 temperature: float = 1.0, filter_frac: float = 0.1, greedy: bool = False,
+                 mesh: Optional[Sequence] = None):
         c = model.cfg
         self.model = model
         self.capacity, self.chunk, self.max_frames = capacity, chunk, max_frames
@@ -267,3 +280,114 @@ class StreamingSessionPool:
         tokens = self.tokens(slot) if tokens is None else torch.as_tensor(tokens,
                                                                           device=self.device)
         return self.model.decode_tokens_to_motion(tokens.long()[None])[0]
+
+
+class MeshSessionPool:
+    """``StreamingSessionPool(model, mesh=devices, ...)``: ``capacity``
+    slots over ``len(devices)`` pools of ``capacity / len(devices)``, one a
+    device, each with its own replica of ``model``, behind the same methods. Global slot ``s`` is
+    slot ``s % per`` of the pool on ``devices[s // per]``; ``join`` takes
+    the lowest free global slot, as one pool does."""
+
+    def __init__(self, model: SLMFT, *, capacity: int = 8, mesh: Sequence = (), **kwargs):
+        devices = [torch.device(d) for d in mesh]
+        if not devices or capacity % len(devices):
+            raise ValueError("capacity must divide evenly over the mesh's data axis "
+                             f"({len(devices)} devices)")
+        self.capacity, self.per = capacity, capacity // len(devices)
+        self.device = devices[0]
+        self.pools = []
+        for dev in devices:
+            replica = model if dev == model_device(model) else copy.deepcopy(model).to(dev)
+            self.pools.append(StreamingSessionPool(replica, capacity=self.per, **kwargs))
+        self.model = self.pools[0].model
+        self.chunk = self.pools[0].chunk
+
+    def _split(self, slots: Sequence[int]):
+        """The listed slots by pool: {pool index: (rows of the call, local slots)}."""
+        slots = np.asarray(slots, np.int64)
+        if slots.size == 0:
+            raise ValueError("empty slot list")
+        if len(np.unique(slots)) != slots.size:
+            raise ValueError("duplicate slots in one call")
+        groups = {}
+        for row, s in enumerate(slots):
+            rows, local = groups.setdefault(int(s) // self.per, ([], []))
+            rows.append(row)
+            local.append(int(s) % self.per)
+        return slots.size, groups
+
+    def _pool(self, slot: int):
+        return self.pools[slot // self.per], slot % self.per
+
+    def join(self, seed: int = 0) -> int:
+        for i, pool in enumerate(self.pools):
+            if not pool._active.all():
+                return i * self.per + pool.join(seed)
+        raise RuntimeError("pool full; leave() a session or grow capacity")
+
+    def leave(self, slot: int) -> None:
+        pool, local = self._pool(slot)
+        pool.leave(local)
+
+    def active_slots(self) -> np.ndarray:
+        return np.concatenate([i * self.per + p.active_slots()
+                               for i, p in enumerate(self.pools)])
+
+    def frames_fed(self, slot: int) -> int:
+        pool, local = self._pool(slot)
+        return pool.frames_fed(local)
+
+    def tokens_generated(self, slot: int) -> int:
+        pool, local = self._pool(slot)
+        return pool.tokens_generated(local)
+
+    @staticmethod
+    def _rows(x, rows):
+        """The call's rows ``rows`` of a per-slot argument; a scalar or None
+        applies to every slot."""
+        if x is None or np.ndim(x) == 0:
+            return x
+        return x[rows] if torch.is_tensor(x) else np.asarray(x)[rows]
+
+    def feed(self, slots, speaker_chunks, audio_chunks, n_valid=None) -> None:
+        _, groups = self._split(slots)
+        for i, (rows, local) in groups.items():
+            self.pools[i].feed(local, self._rows(speaker_chunks, rows),
+                               self._rows(audio_chunks, rows),
+                               self._rows(n_valid, rows))
+
+    def start(self, slots, prompts) -> None:
+        _, groups = self._split(slots)
+        for i, (rows, local) in groups.items():
+            self.pools[i].start(local, self._rows(prompts, rows))
+
+    def _gather(self, n_rows: int, groups, parts) -> torch.Tensor:
+        out = None
+        for (rows, _), part in zip(groups.values(), parts):
+            if out is None:
+                out = torch.empty((n_rows,) + tuple(part.shape[1:]), dtype=part.dtype,
+                                  device=self.device)
+            out[torch.as_tensor(rows, device=self.device)] = part.to(self.device)
+        return out
+
+    def generate(self, slots, n: int) -> torch.Tensor:
+        n_rows, groups = self._split(slots)
+        return self._gather(n_rows, groups, [self.pools[i].generate(local, n)
+                                             for i, (_, local) in groups.items()])
+
+    def round(self, slots, speaker_chunks, audio_chunks, n=None, n_valid=None):
+        n_rows, groups = self._split(slots)
+        return self._gather(n_rows, groups, [
+            self.pools[i].round(local, self._rows(speaker_chunks, rows),
+                                self._rows(audio_chunks, rows), n,
+                                self._rows(n_valid, rows))
+            for i, (rows, local) in groups.items()])
+
+    def tokens(self, slot: int) -> torch.Tensor:
+        pool, local = self._pool(slot)
+        return pool.tokens(local)
+
+    def motion(self, slot: int, tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        pool, local = self._pool(slot)
+        return pool.motion(local, tokens)

@@ -17,7 +17,7 @@ for raises; ``load_torch_checkpoint`` (:95) reads a reference ``.pt`` /
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Iterable, List, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -26,18 +26,30 @@ from torch import nn
 class BestCheckpointKeeper:
     """Saves ``module``'s state_dict to ``save_dir/best_model.pt`` whenever
     the metric (a loss or a distance: lower is better) improves on the best
-    seen."""
+    seen. In a process group every rank takes rank 0's metric, so all agree,
+    ``state_dict`` (a callable, for a sharded model: every rank gathers) is
+    called on every rank, and rank 0 alone writes."""
 
     def __init__(self, save_dir: str):
         self.path = os.path.join(save_dir, "best_model.pt")
         self.best: Optional[float] = None
 
-    def update(self, metric: float, module: nn.Module) -> bool:
+    def update(self, metric: float, module: nn.Module,
+               state_dict: Optional[Callable[[], Dict]] = None) -> bool:
+        import torch.distributed as dist
+
+        rank0 = True
+        if dist.is_initialized():
+            box = [float(metric)]
+            dist.broadcast_object_list(box, src=0)
+            metric, rank0 = box[0], dist.get_rank() == 0
         better = self.best is None or metric < self.best
         if better:
             self.best = metric
-            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
-            torch.save(module.state_dict(), self.path)
+            sd = state_dict() if state_dict is not None else module.state_dict()
+            if rank0:
+                os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+                torch.save(sd, self.path)
         return better
 
 

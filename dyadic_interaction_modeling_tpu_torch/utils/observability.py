@@ -113,3 +113,18 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """The run record of a rank other than 0: every call writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def run_writer(log_dir: str, hparams: Optional[Mapping] = None):
+    """A ``MetricsWriter`` in the main process (rank 0 of a process group,
+    or the only process), a ``NullWriter`` on the other ranks."""
+    from .logging import main_process
+
+    return MetricsWriter(log_dir, hparams=hparams) if main_process() else NullWriter()

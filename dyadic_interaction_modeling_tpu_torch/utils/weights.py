@@ -474,3 +474,96 @@ def jax_face_generator_to_state_dict(params) -> Dict[str, torch.Tensor]:
                 _fg_adain(sd, f"{q}.{nm}", node[nm])
     _fg_conv(sd, "editing_net.decoder.final.model.0", e["final"])
     return _to_torch(sd)
+
+
+def _pc_conv(sd, prefix, node, bias=True):
+    """flax Conv (kh, kw, I, O) -> Conv2d (O, I, kh, kw)."""
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(_np(node["kernel"]).transpose(3, 2, 0, 1))
+    if bias:
+        sd[f"{prefix}.bias"] = _np(node["bias"])
+
+
+def _pc_bn(sd, prefix, node, eps):
+    """A folded BN (``scale``, ``bias``) -> an eval BatchNorm2d that applies
+    the same affine map: running mean 0, running variance 1 - eps."""
+    scale = _np(node["scale"])
+    sd[f"{prefix}.weight"] = scale
+    sd[f"{prefix}.bias"] = _np(node["bias"])
+    sd[f"{prefix}.running_mean"] = np.zeros_like(scale)
+    sd[f"{prefix}.running_var"] = np.full_like(scale, 1.0 - eps)
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros(())
+
+
+_VGG_CONV_SLOTS = {  # torchvision ``features`` indices of the convs
+    name: [i for i, v in enumerate(
+        [m for v in cfg for m in (("M",) if v == "M" else ("C", "R"))]) if v == "C"]
+    for name, cfg in (("vgg19", [64, 64, "M", 128, 128, "M"] + [256] * 4 + ["M"]
+                       + ([512] * 4 + ["M"]) * 2),
+                      ("vgg16", [64, 64, "M", 128, 128, "M"] + [256] * 3 + ["M"]
+                       + ([512] * 3 + ["M"]) * 2))}
+_INCEPTION_BRANCHES = {
+    "A": ("branch1x1", "branch5x5_1", "branch5x5_2", "branch3x3dbl_1", "branch3x3dbl_2",
+          "branch3x3dbl_3", "branch_pool"),
+    "B": ("branch3x3", "branch3x3dbl_1", "branch3x3dbl_2", "branch3x3dbl_3"),
+    "C": ("branch1x1", "branch7x7_1", "branch7x7_2", "branch7x7_3", "branch7x7dbl_1",
+          "branch7x7dbl_2", "branch7x7dbl_3", "branch7x7dbl_4", "branch7x7dbl_5",
+          "branch_pool"),
+    "D": ("branch3x3_1", "branch3x3_2", "branch7x7x3_1", "branch7x7x3_2", "branch7x7x3_3",
+          "branch7x7x3_4"),
+    "E": ("branch1x1", "branch3x3_1", "branch3x3_2a", "branch3x3_2b", "branch3x3dbl_1",
+          "branch3x3dbl_2", "branch3x3dbl_3a", "branch3x3dbl_3b", "branch_pool"),
+}
+_INCEPTION_BLOCKS = (("Mixed_5b", "A"), ("Mixed_5c", "A"), ("Mixed_5d", "A"), ("Mixed_6a", "B"),
+                     ("Mixed_6b", "C"), ("Mixed_6c", "C"), ("Mixed_6d", "C"), ("Mixed_6e", "C"),
+                     ("Mixed_7a", "D"), ("Mixed_7b", "E"), ("Mixed_7c", "E"))
+_VGGFACE_CONVS = ("conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2", "conv3_3",
+                  "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2", "conv5_3")
+
+
+def jax_perceptual_to_state_dict(network: str, params) -> Dict[str, torch.Tensor]:
+    """The params of one of JAX ``render/perceptual.py``'s trunks (the
+    ``PERCEPTUAL_NETWORKS`` names) -> the state_dict of the port's trunk of
+    that name (``render.perceptual``, torchvision's layout), which it loads
+    with ``strict=True``. A folded BN becomes an eval BatchNorm2d with
+    running mean 0 and running variance 1 - eps. With it, the JAX default
+    random-feature loss (``vgg_params=None``) is reproduced in the port."""
+    p = _unwrap(params)
+    sd: Dict[str, np.ndarray] = {}
+    if network in _VGG_CONV_SLOTS:
+        for i, slot in enumerate(_VGG_CONV_SLOTS[network]):
+            if f"conv_{i}" in p:
+                _pc_conv(sd, f"features.{slot}", p[f"conv_{i}"])
+    elif network == "alexnet":
+        for i, slot in enumerate((0, 3, 6, 8, 10)):
+            _pc_conv(sd, f"features.{slot}", p[f"conv_{i}"])
+    elif network in ("resnet50", "robust_resnet50"):
+        _pc_conv(sd, "conv1", p["conv1"], bias=False)
+        _pc_bn(sd, "bn1", p["bn1"], 1e-5)
+        for si, blocks in enumerate((3, 4, 6, 3)):
+            for bi in range(blocks):
+                src, dst = f"layer{si + 1}_{bi}", f"layer{si + 1}.{bi}"
+                for k in (1, 2, 3):
+                    _pc_conv(sd, f"{dst}.conv{k}", p[f"{src}_c{k}"], bias=False)
+                    _pc_bn(sd, f"{dst}.bn{k}", p[f"{src}_b{k}"], 1e-5)
+                if bi == 0:
+                    _pc_conv(sd, f"{dst}.downsample.0", p[f"{src}_down"], bias=False)
+                    _pc_bn(sd, f"{dst}.downsample.1", p[f"{src}_down_bn"], 1e-5)
+    elif network == "inception_v3":
+        def basic(prefix, node):
+            _pc_conv(sd, f"{prefix}.conv", node["conv"], bias=False)
+            _pc_bn(sd, f"{prefix}.bn", node["bn"], 1e-3)
+
+        for name in ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+                     "Conv2d_4a_3x3"):
+            basic(name, p[name])
+        for name, kind in _INCEPTION_BLOCKS:
+            for branch in _INCEPTION_BRANCHES[kind]:
+                basic(f"{name}.{branch}", p[name][branch])
+    elif network == "vgg_face_dag":
+        for i, name in enumerate(_VGGFACE_CONVS):
+            _pc_conv(sd, name, p[f"conv_{i}"])
+        for fc in ("fc6", "fc7", "fc8"):
+            _dense(sd, fc, p[fc])
+    else:
+        raise ValueError(f"unknown perceptual network: {network}")
+    return _to_torch(sd)

@@ -6,8 +6,8 @@ session's tokens under the same seed; a slot at full context and token
 capacity survives other slots' traffic; a freed slot's stale caches are
 invisible to its next occupant; ``round`` equals ``feed`` then
 ``generate``; the guards; and the caches are written in place, never
-copied. The JAX pool's ``mesh=`` and bf16 cases are not ported (no
-``parallel/`` yet; bf16 runs on the card).
+copied. The JAX pool's ``mesh=`` case is held in ``test_torch_mesh.py``;
+its bf16 case runs on the card.
 """
 
 import numpy as np
