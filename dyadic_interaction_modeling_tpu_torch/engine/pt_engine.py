@@ -35,6 +35,7 @@ from ..metrics.eval_utils import (
 )
 from ..models.slm import SLMFT
 from ..models.xtrans import IGNORE, generate_tokens
+from ..utils.profiling import span
 from .train_state import clip_by_global_norm
 
 log = logging.getLogger(__name__)
@@ -211,13 +212,16 @@ def make_slmft_generator(model: SLMFT) -> Callable:
                  return_tokens: bool = False):
         src_v, tgt, src_a, mask = batch
         b, l = src_v.shape[0], src_v.shape[1]
-        ctx, prompt = model.encode_context(src_v, tgt, src_a, mask)
-        tokens = generate_tokens(model.decoder, prompt.repeat(n_samples, 1), l - 1,
-                                 ctx, mask, generator, greedy=greedy,
-                                 context_groups=n_samples, gumbel=gumbel)
-        motion = model.decode_tokens_to_motion(tokens)
-        # (N*B, L-1, 56) -> (B, N, L-1, 56)
-        cands = motion.reshape(n_samples, b, l - 1, -1).transpose(0, 1)
+        with span("generate"):
+            with span("encode"):
+                ctx, prompt = model.encode_context(src_v, tgt, src_a, mask)
+            tokens = generate_tokens(model.decoder, prompt.repeat(n_samples, 1), l - 1,
+                                     ctx, mask, generator, greedy=greedy,
+                                     context_groups=n_samples, gumbel=gumbel)
+            with span("vq_decode"):
+                motion = model.decode_tokens_to_motion(tokens)
+                # (N*B, L-1, 56) -> (B, N, L-1, 56)
+                cands = motion.reshape(n_samples, b, l - 1, -1).transpose(0, 1)
         return (cands, tokens) if return_tokens else cands
 
     return generate
@@ -317,14 +321,17 @@ def evaluate_test_epoch(model: SLMFT, generate: Callable, loader: Iterable,
         data_ids = batch[4] if len(batch) > 4 else [None] * src_v.shape[0]
         tensors = tuple(torch.as_tensor(np.asarray(x), device=device)
                         for x in (src_v, tgt, src_a, mask))
-        cands = generate(tensors, generator, beam_size).float().cpu().numpy()
+        cands = generate(tensors, generator, beam_size)
+        with span("to_host"):  # waits for the card
+            cands = cands.float().cpu().numpy()
         lens = np.asarray(mask).sum(axis=1)
         tgt_np, src_np = np.asarray(tgt), np.asarray(src_v)
-        for j in range(src_np.shape[0]):
-            lj = int(lens[j])
-            target = tgt_np[j, 1:lj]
-            y_trues.append(target)
-            xs.append(src_np[j, : lj - 1])
-            ids.append(data_ids[j])
-            y_preds.append(pick(cands[j, :, : lj - 1], target))
+        with span("fd_pick"):
+            for j in range(src_np.shape[0]):
+                lj = int(lens[j])
+                target = tgt_np[j, 1:lj]
+                y_trues.append(target)
+                xs.append(src_np[j, : lj - 1])
+                ids.append(data_ids[j])
+                y_preds.append(pick(cands[j, :, : lj - 1], target))
     return y_trues, y_preds, xs, ids

@@ -47,6 +47,7 @@ from ..kernels.attention import KERNEL_D as FLASH_D
 from ..kernels.attention import flash_attention
 from ..kernels.decode import KERNEL_D as DECODE_D
 from ..kernels.decode import MAX_NQ, decode_attention, decode_attention_plain
+from ..utils.profiling import span
 
 NEG_INF = float("-inf")
 IGNORE = -100  # the ignore_index of token targets
@@ -593,22 +594,25 @@ def generate_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
     if b % context_groups:
         raise ValueError(f"batch {b} is not a multiple of context_groups "
                          f"{context_groups}")
-    dtype = decoder.to_logits.weight.dtype
-    device = prompt.device
-    cross = decoder.cross_kv(context.to(dtype))
-    mask = None if context_mask is None else context_mask.to(torch.bool).contiguous()
-    cache = init_decoder_cache(b, p + seq_len, decoder.depth, decoder.heads,
-                               decoder.dim_head, dtype, decoder.kv_heads, device)
-    logits = None
-    for i in range(p):
-        logits = decoder.decode_step(prompt[:, i: i + 1], cache, i, cross, mask,
-                                     context_groups)
-    tokens = torch.empty(b, seq_len, dtype=prompt.dtype, device=device)
-    for i in range(seq_len):
-        tok = sample_tokens(logits, greedy, temperature, filter_frac,
-                            None if gumbel is None else gumbel[i], generator)
-        tokens[:, i] = tok.to(prompt.dtype)
-        if i + 1 < seq_len:  # the last token's logits would go unused
-            logits = decoder.decode_step(tokens[:, i: i + 1], cache, p + i, cross,
-                                         mask, context_groups)
+    with span("token_loop"):
+        with span("loop_setup"):
+            dtype = decoder.to_logits.weight.dtype
+            device = prompt.device
+            cross = decoder.cross_kv(context.to(dtype))
+            mask = None if context_mask is None else context_mask.to(torch.bool).contiguous()
+            cache = init_decoder_cache(b, p + seq_len, decoder.depth, decoder.heads,
+                                       decoder.dim_head, dtype, decoder.kv_heads, device)
+            logits = None
+            for i in range(p):
+                logits = decoder.decode_step(prompt[:, i: i + 1], cache, i, cross, mask,
+                                             context_groups)
+            tokens = torch.empty(b, seq_len, dtype=prompt.dtype, device=device)
+        for i in range(seq_len):
+            with span("token_step", t=p + i):
+                tok = sample_tokens(logits, greedy, temperature, filter_frac,
+                                    None if gumbel is None else gumbel[i], generator)
+                tokens[:, i] = tok.to(prompt.dtype)
+                if i + 1 < seq_len:  # the last token's logits would go unused
+                    logits = decoder.decode_step(tokens[:, i: i + 1], cache, p + i, cross,
+                                                 mask, context_groups)
     return tokens

@@ -1,87 +1,162 @@
-"""Step timing and tracing.
+"""Spans of the program's stages, and the profiler's trace.
 
-Counterpart of ``dyadic_interaction_modeling_tpu/utils/profiling.py``:
+* ``span(name, **counts)``: a stage of the program, as a context manager.
+  Off (the default) it returns one shared object that does nothing. Inside
+  ``recording()`` it records a ``Span`` whose times come from
+  ``time.time_ns()``, the clock of ``torch.profiler``'s event timestamps, so
+  each device operation can be placed under the stage that launched it;
+* ``recording()``: the only switch; turns the recorder on for a block;
+* ``self_ns``: a span's time less its children's;
+* ``trace``: a ``torch.profiler`` window with the recorder on, written as a
+  Chrome trace (Perfetto, ``chrome://tracing``) with the spans as a track of
+  their own above the kernels.
 
-* ``StepTimer``: per-phase meters (data / step / eval) with an ETA; a phase
-  given ``sync`` tensors waits for the card before it stops its clock,
-* ``trace``: a ``torch.profiler`` window over the CPU and, where there is
-  one, the card, written as a Chrome trace (``chrome://tracing``, Perfetto).
+The spans of the generate path (``engine/pt_engine.py``,
+``models/xtrans.py``), all read by ``cli/profile_generate``, which also
+holds the analysis that places the profiler's device operations and the
+card's idle time under them: ``generate``, ``encode``, ``token_loop`` with
+``loop_setup`` and one ``token_step`` a sampled token (counter ``t``, the
+cache position it decodes at), ``vq_decode``; in ``evaluate_test_epoch``
+``to_host`` and ``fd_pick``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
+import json
 import os
+import threading
 import time
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import torch
 
-from .logging import AverageMeter
+# the spans' process in the Chrome trace: above every Linux pid (2**22)
+SPAN_PID = 1 << 23
+
+_record: Optional[List["Span"]] = None  # the list ``recording()`` fills
+_ids = itertools.count(1)
+_local = threading.local()
 
 
-def fence(tree) -> None:
-    """Wait for the card on each CUDA device that holds a tensor of ``tree``
-    (a tensor, or lists, tuples and dicts of them); CPU tensors need no
-    wait."""
-    devices = set()
+@dataclass
+class Span:
+    """One stage of one call. ``parent_id`` is the innermost span open on
+    the same thread at its start (0: none). Times are ``time.time_ns()``;
+    ``end_ns`` is 0 while it is open."""
 
-    def visit(x):
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            for v in x.values():
-                visit(v)
-        elif isinstance(x, (list, tuple)):
-            for v in x:
-                visit(v)
+    id: int
+    parent_id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    counts: Dict[str, int] = field(default_factory=dict)
 
-    visit(tree)
-    for d in devices:
-        torch.cuda.synchronize(d)
+    @property
+    def ns(self) -> int:
+        return self.end_ns - self.start_ns
 
 
-class StepTimer:
-    """Per-phase meters (data / forward+backward / eval) with ETA."""
+def _stack() -> List[Span]:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
 
-    def __init__(self, max_iter: Optional[int] = None):
-        self.meters: Dict[str, AverageMeter] = {}
-        self.max_iter = max_iter
-        self._t0 = time.perf_counter()
-        self.iteration = 0
 
-    @contextlib.contextmanager
-    def phase(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        yield
-        if sync is not None:
-            fence(sync)
-        self.meters.setdefault(name, AverageMeter()).update(time.perf_counter() - t0)
+class _Off:
+    __slots__ = ()
 
-    def tick(self) -> None:
-        self.iteration += 1
+    def __enter__(self):
+        return self
 
-    def summary(self) -> str:
-        parts = [f"{k} {m.avg * 1000:.1f}ms" for k, m in self.meters.items()]
-        if self.max_iter and self.iteration:
-            per_iter = (time.perf_counter() - self._t0) / self.iteration
-            remain = per_iter * (self.max_iter - self.iteration)
-            parts.append(f"eta {remain / 60:.1f}min")
-        return " | ".join(parts)
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("name", "counts", "out", "span")
+
+    def __init__(self, name: str, counts: Dict[str, int], out: List[Span]):
+        self.name, self.counts, self.out = name, counts, out
+
+    def __enter__(self):
+        stack = _stack()
+        self.span = Span(next(_ids), stack[-1].id if stack else 0, self.name,
+                         time.time_ns(), 0, threading.get_ident(), self.counts)
+        stack.append(self.span)
+        self.out.append(self.span)
+        return self
+
+    def __exit__(self, *exc):
+        self.span.end_ns = time.time_ns()
+        _stack().pop()
+        return False
+
+
+def span(name: str, **counts: int):
+    """A stage named ``name`` with counters ``counts``, over a ``with``
+    block; recorded only inside ``recording()``."""
+    if _record is None:
+        return _OFF
+    return _On(name, counts, _record)
+
+
+@contextlib.contextmanager
+def recording():
+    """The recorder on over the block; yields the list of the spans it
+    records, in the order they open. It collects the garbage first: the
+    spans it keeps set off the cyclic collector, which would otherwise
+    sweep older garbage (a finished profiler's events) inside the block."""
+    global _record
+    gc.collect()
+    prev, spans = _record, []
+    _record = spans
+    try:
+        yield spans
+    finally:
+        _record = prev
+
+
+def self_ns(sp: Span, spans: List[Span]) -> int:
+    """``sp``'s time less the time its child spans take (they run on its
+    thread, one after another)."""
+    return sp.ns - sum(c.ns for c in spans if c.parent_id == sp.id)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """``torch.profiler`` over the block; yields the profiler (its
+    """``torch.profiler`` over the block, on the CPU and, where there is
+    one, the card, with the recorder on; yields the profiler (its
     ``key_averages()`` has the sums by op and kernel) and writes
-    ``{log_dir}/trace.json`` at the end."""
+    ``{log_dir}/trace.json`` at the end: the profiler's Chrome trace and the
+    block's spans, a row a thread under a process named ``spans``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    path = os.path.join(log_dir, "trace.json")
+    with recording() as spans, profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)  # the trace's ts: microseconds from it
+    doc["traceEvents"].append({"ph": "M", "name": "process_name", "pid": SPAN_PID,
+                               "tid": 0, "args": {"name": "spans"}})
+    doc["traceEvents"] += [
+        {"ph": "X", "cat": "span", "name": sp.name, "pid": SPAN_PID, "tid": sp.thread,
+         "ts": (sp.start_ns - base) / 1e3, "dur": sp.ns / 1e3,
+         "args": dict(sp.counts, id=sp.id, parent_id=sp.parent_id)}
+        for sp in spans]
+    with open(path, "w") as f:
+        json.dump(doc, f)

@@ -3,7 +3,7 @@
 writer writes for the same calls (``scalars.jsonl``, ``hparams.json``,
 ``images/<tag>_<step:09d>.png``), the tensorboard mirror's calls, the LR
 schedules against JAX's values and through ``LambdaLR``,
-``set_random_seed``, the logger and meters, and ``StepTimer`` / ``trace``.
+``set_random_seed``, the logger and meters, and ``trace`` with its spans.
 
 ``assert_run_record`` and ``no_tensorboard`` serve the tests that run the
 four training twins: the records they must write (the tags of
@@ -15,6 +15,7 @@ import json
 import os
 import random
 import sys
+import time
 import types
 
 import numpy as np
@@ -177,22 +178,26 @@ def test_logger_meter_and_main_process():
 
 
 def test_step_timer_and_trace_on_the_cpu(tmp_path):
-    timer = TP.StepTimer(max_iter=4)
+    """``trace`` turns the span recorder on and writes the spans into its
+    Chrome trace, a track of their own, on the profiler's clock."""
     x = torch.randn(64, 64)
-    for _ in range(2):
-        with timer.phase("step", sync={"y": [x @ x]}):
-            pass
-        with timer.phase("data"):
-            pass
-        timer.tick()
-    assert timer.meters["step"].count == 2 and timer.iteration == 2
-    summary = timer.summary()
-    assert "step" in summary and "data" in summary and "eta" in summary
     with TP.trace(str(tmp_path / "trace")) as prof:
-        torch.mm(x, x)
+        with TP.span("step", i=3):
+            time.sleep(1e-4)  # the clocks need agree within 0.1 ms only
+            torch.mm(x, x)
+            time.sleep(1e-4)
     assert any("mm" in e.key for e in prof.key_averages())
+    with TP.recording() as spans:
+        pass
+    assert TP.span("step") is TP.span("other") and spans == []  # off after the block
     with open(tmp_path / "trace" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    (step,) = [e for e in events if e.get("cat") == "span"]
+    assert step["name"] == "step" and step["args"]["i"] == 3 and step["pid"] == TP.SPAN_PID
+    mm = next(e for e in events if e.get("name") == "aten::mm")
+    assert step["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= step["ts"] + step["dur"]
+    assert {"ph": "M", "name": "process_name", "pid": TP.SPAN_PID, "tid": 0,
+            "args": {"name": "spans"}} in events
 
 
 def test_vq_train_epoch_writes_the_jax_batch_scalars(tmp_path, monkeypatch):
