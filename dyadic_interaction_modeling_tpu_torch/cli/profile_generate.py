@@ -4,10 +4,11 @@
 
 Builds SLMFT at full width (``slm_defaults()`` + ``vq_listener_defaults()``,
 random init from seed 0, bf16) and the benchmark's generation batch (256
-synthetic clips of L = 256, best-of-10), runs one warm-up generate, then one
-batch of ``engine.pt_engine.evaluate_test_epoch`` (generate, the candidates
-to the host, the FD pick) under ``torch.profiler`` (the card alone, so the
-host keeps its pace) with the span recorder of ``utils/profiling.py`` on.
+synthetic clips of L = 256, best-of-10), runs one warm-up generate (which
+captures the CUDA graph of a sampled token step), then one batch of
+``engine.pt_engine.evaluate_test_epoch`` (generate, the candidates to the
+host, the FD pick) under ``torch.profiler`` (the card alone, so the host
+keeps its pace), both with the span recorder of ``utils/profiling.py`` on.
 Prints the card's name and power limit, the batch's wall time and the
 card's busy share, the kernels with the most device time, and for each
 stage (span name, and ``outside``) its host self time, the device time of
@@ -16,10 +17,12 @@ in it; then a token step's host time (median of the ``token_step`` spans)
 and device time, the token loop's share of the card's idle time in the
 call (``generate`` and ``to_host``, what one call of the benchmark's gen
 cell holds) and that call's idle share; then the token steps by cache
-position ``t``, 64 positions a row. Needs a CUDA device.
+position ``t``, 64 positions a row; then the profiled call's token steps
+replayed from a CUDA graph, and the graphs the warm-up call captured with
+their capture's host time. Needs a CUDA device.
 
-The analysis (``device_ops``, ``host_idle``, ``stages``, ``by_position``)
-runs on the CPU too, on any profile and spans.
+The analysis (``device_ops``, ``host_idle``, ``stages``, ``by_position``,
+``graph_numbers``) runs on the CPU too, on any profile and spans.
 """
 
 from __future__ import annotations
@@ -67,7 +70,9 @@ def device_ops(prof) -> List[Tuple[str, int, int, Optional[int]]]:
     on ``time.time_ns()``'s clock, where ``launch_ns`` is the start of the
     CUDA API call (``cudaLaunchKernel``, ``cuLaunchKernelEx``,
     ``cudaMemcpyAsync``, ...) that launched the operation (the two share the
-    profiler's correlation id), None where the trace holds no such call."""
+    profiler's correlation id), None where the trace holds no such call.
+    The operations of a replayed CUDA graph all link to its one
+    ``cudaGraphLaunch``."""
     from torch.autograd import DeviceType
 
     launch, ops = {}, []
@@ -242,6 +247,18 @@ def token_numbers(spans, rows) -> dict:
             "call_idle_share": 100.0 * call / call_s if call_s else 0.0}
 
 
+def graph_numbers(spans) -> dict:
+    """From the spans of generate calls: the token steps replayed from a
+    CUDA graph (the ``token_loop`` spans' ``graphed``) and all token steps,
+    the graphs captured (``captured``) and the host time of their captures
+    (the ``capture`` spans), in ms."""
+    loops = [sp for sp in spans if sp.name == "token_loop"]
+    return {"graphed": sum(sp.counts.get("graphed", 0) for sp in loops),
+            "token_steps": sum(1 for sp in spans if sp.name == "token_step"),
+            "captured": sum(sp.counts.get("captured", 0) for sp in loops),
+            "capture_ms": sum(sp.ns for sp in spans if sp.name == "capture") / 1e6}
+
+
 def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
@@ -265,8 +282,9 @@ def main() -> int:
     gen = make_slmft_generator(model)
     rng = torch.Generator(device="cuda").manual_seed(SEED)
 
-    gen(tuple(torch.as_tensor(x, device="cuda") for x in batch), rng, SAMPLES)  # warm-up
-    torch.cuda.synchronize()
+    with recording() as warm:
+        gen(tuple(torch.as_tensor(x, device="cuda") for x in batch), rng, SAMPLES)  # warm-up
+        torch.cuda.synchronize()
     with recording() as spans, profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time_ns()
         evaluate_test_epoch(model, gen, [batch], rng, beam_size=SAMPLES, device="cuda")
@@ -299,6 +317,11 @@ def main() -> int:
     for t, r in by_position(spans, ops, (t0, t1)).items():
         print(f"{t:>4}-{t + BUCKET - 1:<5} {r['n']:>6} {r['host_us']:>17.1f} "
               f"{r['device_us']:>10.1f} {r['idle_us']:>8.1f}")
+    got, cap = graph_numbers(spans), graph_numbers(warm)
+    print(f"CUDA graphs: {got['graphed']} of the profiled call's {got['token_steps']} token "
+          f"steps replayed from a graph ({100 * got['graphed'] / max(1, got['token_steps']):.2f}"
+          f"%), {got['captured']} captured in it; the warm-up call captured "
+          f"{cap['captured']} in {cap['capture_ms']:.1f} ms of host time")
     return 0
 
 

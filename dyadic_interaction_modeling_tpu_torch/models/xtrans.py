@@ -31,18 +31,24 @@ Every other attention (cross-attention, a self-attention with an
 Streaming (``serving/``): ``extend`` runs a chunk causally against KV
 caches (``xtrans.py:274``, ``:417``, ``:565``), and every cached step takes
 its position as an int or as a (B,) tensor of each row's own, which a pool
-of sessions at different lengths gives K1 as a key mask.
+of sessions at different lengths gives K1 as a key mask. A cached step also
+takes it as a 0-d int32 tensor on the device, one position for the batch
+that the card reads, so that ``generate_tokens`` can replay its token step
+from a CUDA graph (``_TokenGraph``).
 """
 
 from __future__ import annotations
 
+import itertools
 import math
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import LAUNCHES
 from ..kernels.attention import KERNEL_D as FLASH_D
 from ..kernels.attention import flash_attention
 from ..kernels.decode import KERNEL_D as DECODE_D
@@ -58,6 +64,13 @@ def per_row(t) -> bool:
     position (a pool of sessions at different lengths) rather than one int
     for the batch."""
     return isinstance(t, torch.Tensor) and t.dim() == 1
+
+
+def device_step(t) -> bool:
+    """Whether a step position ``t`` is a 0-d tensor: one position for the
+    batch, int32 on the decoder's device, which the card reads (a graphed
+    token step advances it there). A (1,) tensor stays a per-row position."""
+    return isinstance(t, torch.Tensor) and t.dim() == 0
 
 
 def decode_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t=None,
@@ -189,14 +202,19 @@ class XAttention(nn.Module):
                 self._split(self.to_v(context), self.kvh).contiguous())
 
     def step_self(self, x_t: torch.Tensor, cache_k: torch.Tensor,
-                  cache_v: torch.Tensor, t) -> torch.Tensor:
+                  cache_v: torch.Tensor, t, index: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
         """One causal token against the KV cache, which is updated IN PLACE
         at position ``t`` (the JAX package returns a new cache instead).
 
         x_t: (B, 1, dim); cache_k/v: (B, KVH, Lmax, Dh); t: int step index,
         or a (B,) tensor of each row's own index (a pool of sessions at
         different lengths): then each row's K/V are written at its index and
-        its bound goes to K1 as a (B, Lmax) key mask ``pos <= t[b]``.
+        its bound goes to K1 as a (B, Lmax) key mask ``pos <= t[b]``; or a
+        0-d int32 tensor on the device (``device_step``): the K/V are
+        written by ``index_copy_`` at ``index``, ``t`` as a (1,) int64 tensor
+        (``DecoderLayers.step`` makes it once for its layers), and K1 reads
+        its bound from ``t`` on the card.
         """
         b = x_t.shape[0]
         _, kvh, lmax, dh = cache_k.shape
@@ -209,6 +227,10 @@ class XAttention(nn.Module):
             cache_v[rows, :, t] = v_t
             key_mask = torch.arange(lmax, device=t.device)[None, :] <= t[:, None]
             t = None
+        elif device_step(t):
+            index = t.view(1).long() if index is None else index
+            cache_k.index_copy_(2, index, k_t[:, :, None])
+            cache_v.index_copy_(2, index, v_t[:, :, None])
         else:
             cache_k[:, :, t] = k_t
             cache_v[:, :, t] = v_t
@@ -364,9 +386,11 @@ class DecoderLayers(nn.Module):
              cross_kv: List[Tuple[torch.Tensor, torch.Tensor]],
              context_mask: Optional[torch.Tensor] = None, cross_groups: int = 1
              ) -> torch.Tensor:
+        # a position on the card: one int64 cache index for every layer's writes
+        index = t.view(1).long() if device_step(t) else None
         for i in range(self.depth):
             ((ns,), sa), ((nc,), ca), ((nf,), ff) = self._blocks(i)
-            x_t = x_t + sa.step_self(ns(x_t), cache[f"k_{i}"], cache[f"v_{i}"], t)
+            x_t = x_t + sa.step_self(ns(x_t), cache[f"k_{i}"], cache[f"v_{i}"], t, index)
             k, v = cross_kv[i]
             x_t = x_t + ca.step_cross(nc(x_t), k, v, context_mask, cross_groups)
             x_t = x_t + ff(nf(x_t))
@@ -460,14 +484,17 @@ class TokenDecoder(nn.Module):
         self.to_logits = nn.Linear(dim, num_tokens, bias=False)
 
     def _embed(self, tokens: torch.Tensor, offset=0) -> torch.Tensor:
-        """Token and position embeddings; ``offset`` is an int, or a (B,)
-        tensor of each row's own first position."""
+        """Token and position embeddings; ``offset`` is an int, a (B,)
+        tensor of each row's own first position, or a 0-d tensor on the
+        device, the position of one token a row (``device_step``)."""
         emb = self.token_emb.emb(tokens.long())
         if hasattr(self, "pos_emb"):
             table = self.pos_emb.emb.weight
             if per_row(offset):
                 pos = table[offset[:, None] + torch.arange(tokens.shape[1],
                                                            device=offset.device)]
+            elif device_step(offset):
+                pos = table.index_select(0, offset.view(1))[None]
             else:
                 pos = table[offset: offset + tokens.shape[1]][None]
             emb = emb + (pos * self.scale).to(emb.dtype)
@@ -485,9 +512,10 @@ class TokenDecoder(nn.Module):
     def decode_step(self, token: torch.Tensor, cache, t, cross_kv,
                     context_mask: Optional[torch.Tensor] = None,
                     cross_groups: int = 1) -> torch.Tensor:
-        """token (B, 1) at position ``t`` (an int, or a (B,) tensor of each
-        row's own, see ``XAttention.step_self``) -> logits (B, num_tokens);
-        writes the token's K/V into ``cache`` in place."""
+        """token (B, 1) at position ``t`` (an int, a (B,) tensor of each
+        row's own, or a 0-d int32 tensor on the device; see
+        ``XAttention.step_self``) -> logits (B, num_tokens); writes the
+        token's K/V into ``cache`` in place."""
         h = self._embed(token, t)
         h = self.attn_layers.step(h, cache, t, cross_kv, context_mask, cross_groups)
         return self.to_logits(h)[:, 0]
@@ -546,7 +574,11 @@ def gumbel_noise(shape, generator: Optional[torch.Generator],
                  device) -> torch.Tensor:
     """-log(-log(U)), U uniform on [tiny, 1), the noise of
     ``jax.random.categorical``."""
-    u = torch.rand(shape, generator=generator, device=device)
+    return _gumbel(torch.rand(shape, generator=generator, device=device))
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    """``gumbel_noise`` of the uniform draws ``u``."""
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
@@ -566,6 +598,153 @@ def sample_tokens(logits: torch.Tensor, greedy: bool = False, temperature: float
     if noise is None:
         noise = gumbel_noise(filt.shape, generator, filt.device)
     return (filt + noise.to(filt.device)).argmax(dim=-1)
+
+
+def graph_engages(device: torch.device, start, gumbel: Optional[torch.Tensor]) -> bool:
+    """Whether ``generate_tokens`` replays its token steps from a CUDA graph
+    (``_TokenGraph``): on a CUDA device, from an int start position (a
+    per-row (B,) position runs eagerly), with the noise drawn from a
+    generator (injected ``gumbel`` runs eagerly), and outside autocast, whose
+    cast weights do not outlive its context."""
+    return (device.type == "cuda" and isinstance(start, int) and gumbel is None
+            and not torch.is_autocast_enabled(device.type))
+
+
+def token_graph_key(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
+                    context: torch.Tensor, context_mask: Optional[torch.Tensor],
+                    context_groups: int, temperature: float, filter_frac: float) -> tuple:
+    """What a graphed token step is captured for: the shapes, the prompt's
+    and the decoder's dtypes, the device, the addresses of the decoder's
+    weights (which the graph reads), ``context_groups`` and the sampling
+    settings. The generator is not part of it: a sampled step's uniform
+    draws are made from the call's generator outside the graph."""
+    weights = tuple(x.data_ptr() for x in itertools.chain(decoder.parameters(),
+                                                           decoder.buffers()))
+    return (tuple(prompt.shape), prompt.dtype, seq_len, tuple(context.shape),
+            None if context_mask is None else tuple(context_mask.shape),
+            decoder.to_logits.weight.dtype, prompt.device, context_groups,
+            float(temperature), float(filter_frac), weights)
+
+
+class _TokenGraph:
+    """``generate_tokens``' token step replayed from CUDA graphs, over the
+    static buffers of one key (``token_graph_key``).
+
+    A step samples from the fp32 logits, writes the token at the position,
+    runs ``decode_step`` at the position (a 0-d int32 tensor on the card)
+    into the logits, and advances the position, so a replay costs the host
+    one launch where the eager step issues ~100. A greedy and a sampled
+    graph share the buffers: the self-attention cache, the cross K/V, the
+    context mask, the logits, a sampled step's uniform draws, the (B, P +
+    seq_len) tokens and the position. A call copies its inputs in, runs the
+    prompt steps eagerly and replays a graph for each token step but the
+    last, which needs no decode. A graph is captured at the first call of
+    its kind, after one eager step on the capture stream (what a step sets up
+    at its first run on a stream, such as cuBLAS's workspace, is then set up
+    outside the capture). The uniform draws are made from the call's
+    generator before each replay, so the steps read its Philox stream as the
+    eager loop does, and the graph holds no generator state."""
+
+    def __init__(self, decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
+                 context: torch.Tensor, context_mask: Optional[torch.Tensor],
+                 context_groups: int, temperature: float, filter_frac: float):
+        (b, p), dev = prompt.shape, prompt.device
+        dtype, vocab = decoder.to_logits.weight.dtype, decoder.to_logits.weight.shape[0]
+        self.dtype, self.groups = dtype, context_groups
+        self.temperature, self.filter_frac = temperature, filter_frac
+        self.cache = init_decoder_cache(b, p + seq_len, decoder.depth, decoder.heads,
+                                        decoder.dim_head, dtype, decoder.kv_heads, dev)
+        kv = (context.shape[0], decoder.kv_heads or decoder.heads, context.shape[1],
+              decoder.dim_head)
+        self.cross = [(torch.empty(kv, dtype=dtype, device=dev),
+                       torch.empty(kv, dtype=dtype, device=dev)) for _ in range(decoder.depth)]
+        self.mask = (None if context_mask is None else
+                     torch.empty(context_mask.shape, dtype=torch.bool, device=dev))
+        self.logits = torch.empty(b, vocab, device=dev)
+        self.uniform = torch.empty(b, vocab, device=dev)
+        self.tokens = torch.empty(b, p + seq_len, dtype=prompt.dtype, device=dev)
+        # the position: a (1,) int64 index for the writes, and its low 32 bits
+        # (CUDA devices are little-endian) the 0-d int32 position decode_step
+        # and K1 read; one advance moves both
+        self.index = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.pos = self.index.view(torch.int32)[0]
+        self.stream = torch.cuda.Stream(dev)
+        self.graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
+        self.launches: Dict[bool, Dict[str, int]] = {}  # kernel launches a replay
+
+    def _step(self, decoder: TokenDecoder, greedy: bool) -> None:
+        noise = None if greedy else _gumbel(self.uniform)
+        tok = sample_tokens(self.logits, greedy, self.temperature, self.filter_frac, noise)
+        self.tokens.index_copy_(1, self.index, tok.to(self.tokens.dtype)[:, None])
+        logits = decoder.decode_step(tok[:, None], self.cache, self.pos, self.cross, self.mask,
+                                     self.groups)
+        self.logits.copy_(logits)
+        self.index.add_(1)
+
+    def _warm_up(self, decoder: TokenDecoder, greedy: bool) -> None:
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            self._step(decoder, greedy)
+        torch.cuda.current_stream().wait_stream(self.stream)
+
+    def _capture(self, decoder: TokenDecoder, greedy: bool) -> torch.cuda.CUDAGraph:
+        graph, before = torch.cuda.CUDAGraph(), dict(LAUNCHES)
+        with span("capture"), torch.cuda.graph(graph, stream=self.stream,
+                                               capture_error_mode="thread_local"):
+            self._step(decoder, greedy)
+        # the capture launched nothing: a replay counts the launches it holds
+        self.launches[greedy] = {k: LAUNCHES[k] - n for k, n in before.items()
+                                 if LAUNCHES[k] != n}
+        LAUNCHES.update(before)
+        self.graphs[greedy] = graph
+        return graph
+
+    def run(self, decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
+            context: torch.Tensor, context_mask: Optional[torch.Tensor],
+            generator: Optional[torch.Generator], greedy: bool
+            ) -> Tuple[torch.Tensor, int, bool]:
+        """(B, seq_len) tokens, the token steps replayed from a graph, and
+        whether this call captured one."""
+        p = prompt.shape[1]
+        with span("loop_setup"):
+            for (k, v), (ks, vs) in zip(decoder.cross_kv(context.to(self.dtype)), self.cross):
+                ks.copy_(k)
+                vs.copy_(v)
+            if self.mask is not None:
+                self.mask.copy_(context_mask)
+            for i in range(p):
+                logits = decoder.decode_step(prompt[:, i: i + 1], self.cache, i, self.cross,
+                                             self.mask, self.groups)
+            self.logits.copy_(logits)
+            self.index.fill_(p)
+        graph, graphed, captured = self.graphs.get(greedy), 0, False
+        for i in range(seq_len - 1):
+            with span("token_step", t=p + i):
+                if not greedy:
+                    torch.rand(self.uniform.shape, generator=generator,
+                               device=self.uniform.device, out=self.uniform)
+                if graph is None and i == 0:
+                    self._warm_up(decoder, greedy)
+                    continue
+                if graph is None:
+                    graph, captured = self._capture(decoder, greedy), True
+                graph.replay()
+                for name, n in self.launches[greedy].items():
+                    LAUNCHES[name] += n
+                graphed += 1
+        if seq_len:
+            with span("token_step", t=p + seq_len - 1):
+                tok = sample_tokens(self.logits, greedy, self.temperature, self.filter_frac,
+                                    None, generator)
+                self.tokens[:, -1] = tok.to(self.tokens.dtype)
+        return self.tokens[:, p:].clone(), graphed, captured
+
+
+# each decoder's _TokenGraph with its key, only the latest key's, for as long
+# as the decoder lives (not an attribute: deep copies and pickles of the
+# decoder stay free of graphs and streams)
+_GRAPHS: "weakref.WeakKeyDictionary[TokenDecoder, Tuple[tuple, _TokenGraph]]" = (
+    weakref.WeakKeyDictionary())
 
 
 @torch.no_grad()
@@ -589,12 +768,45 @@ def generate_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
     (sample-major) while ``context`` / ``context_mask`` carry the B0 distinct
     rows. Step ``t`` reads only the t+1 live cache entries (K1 is bounded by
     t), so there is no chunked-prefix schedule as in the JAX package.
+
+    Where ``graph_engages`` (CUDA tensors, no injected noise), the token
+    steps are replayed from CUDA graphs (``_TokenGraph``, kept for the
+    latest ``token_graph_key`` of the decoder), with the eager loop's
+    tokens; elsewhere the loop runs eagerly. The ``token_loop`` span counts
+    the steps replayed (``graphed``) and whether the call captured a graph
+    (``captured``).
     """
     b, p = prompt.shape
     if b % context_groups:
         raise ValueError(f"batch {b} is not a multiple of context_groups "
                          f"{context_groups}")
-    with span("token_loop"):
+    if not graph_engages(prompt.device, p, gumbel):
+        return _eager_tokens(decoder, prompt, seq_len, context, context_mask, generator,
+                             greedy, context_groups, gumbel, temperature, filter_frac)
+    key = token_graph_key(decoder, prompt, seq_len, context, context_mask, context_groups,
+                          temperature, filter_frac)
+    with torch.cuda.device(prompt.device), span("token_loop") as loop:
+        held = _GRAPHS.get(decoder)
+        if held is None or held[0] != key:
+            _GRAPHS.pop(decoder, None)
+            held = None  # the old buffers go before the new ones come
+            held = _GRAPHS[decoder] = (key, _TokenGraph(
+                decoder, prompt, seq_len, context, context_mask, context_groups, temperature,
+                filter_frac))
+        tokens, graphed, captured = held[1].run(decoder, prompt, seq_len, context,
+                                                context_mask, generator, greedy)
+        loop.set(graphed=graphed, captured=int(captured))
+    return tokens
+
+
+def _eager_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
+                  context: torch.Tensor, context_mask: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator], greedy: bool, context_groups: int,
+                  gumbel: Optional[torch.Tensor], temperature: float,
+                  filter_frac: float) -> torch.Tensor:
+    """``generate_tokens``' loop, one eager ``decode_step`` a token."""
+    b, p = prompt.shape
+    with span("token_loop", graphed=0, captured=0):
         with span("loop_setup"):
             dtype = decoder.to_logits.weight.dtype
             device = prompt.device

@@ -1,6 +1,7 @@
 """Spans of the program's stages, and the profiler's trace.
 
-* ``span(name, **counts)``: a stage of the program, as a context manager.
+* ``span(name, **counts)``: a stage of the program, as a context manager
+  whose ``set(**counts)`` sets counters known only at its end.
   Off (the default) it returns one shared object that does nothing. Inside
   ``recording()`` it records a ``Span`` whose times come from
   ``time.time_ns()``, the clock of ``torch.profiler``'s event timestamps, so
@@ -14,10 +15,12 @@
 The spans of the generate path (``engine/pt_engine.py``,
 ``models/xtrans.py``), all read by ``cli/profile_generate``, which also
 holds the analysis that places the profiler's device operations and the
-card's idle time under them: ``generate``, ``encode``, ``token_loop`` with
-``loop_setup`` and one ``token_step`` a sampled token (counter ``t``, the
-cache position it decodes at), ``vq_decode``; in ``evaluate_test_epoch``
-``to_host`` and ``fd_pick``.
+card's idle time under them: ``generate``, ``encode``, ``token_loop``
+(counters ``graphed``, the token steps replayed from a CUDA graph, and
+``captured``, 1 when the call captured one) with ``loop_setup``, one
+``token_step`` a sampled token (counter ``t``, the cache position it decodes
+at) and ``capture`` (a graph's capture, in a token step), ``vq_decode``; in
+``evaluate_test_epoch`` ``to_host`` and ``fd_pick``.
 """
 
 from __future__ import annotations
@@ -77,6 +80,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **counts: int) -> None:
+        pass
+
 
 _OFF = _Off()
 
@@ -99,6 +105,10 @@ class _On:
         self.span.end_ns = time.time_ns()
         _stack().pop()
         return False
+
+    def set(self, **counts: int) -> None:
+        """Sets counters known only once the block has run."""
+        self.span.counts.update(counts)
 
 
 def span(name: str, **counts: int):

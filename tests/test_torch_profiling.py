@@ -190,6 +190,21 @@ def test_token_numbers_and_steps_by_position():
                                      "idle_us": 0.0025})
 
 
+def test_graph_numbers_count_replayed_steps_and_captures():
+    """Two calls: the first captured (one eager step, one captured, one
+    replayed of its 3 token steps), the second replayed 2 of 3."""
+    spans = [_span(1, 0, "token_loop", 0, 100, graphed=1, captured=1),
+             *[_span(2 + i, 1, "token_step", 10 * i, 10 * i + 10, t=1 + i) for i in range(3)],
+             _span(5, 3, "capture", 12, 18),
+             _span(6, 0, "token_loop", 100, 200, graphed=2, captured=0),
+             *[_span(7 + i, 6, "token_step", 100 + 10 * i, 110 + 10 * i, t=1 + i)
+               for i in range(3)]]
+    assert PG.graph_numbers(spans) == pytest.approx(
+        {"graphed": 3, "token_steps": 6, "captured": 1, "capture_ms": 6e-6})
+    assert PG.graph_numbers(spans[5:]) == pytest.approx(
+        {"graphed": 2, "token_steps": 3, "captured": 0, "capture_ms": 0.0})
+
+
 def test_device_ops_link_each_operation_to_its_launch():
     from torch.autograd import DeviceType
 
@@ -250,6 +265,7 @@ def test_generate_spans_and_bitwise_outputs_with_the_recorder_on(small_slmft):
         loop = next(s for s in mine if s.name == "token_loop")
         assert all(s.parent_id == loop.id for s in steps)
         assert [s.counts for s in steps] == [{"t": 1 + i} for i in range(L - 1)]
+        assert loop.counts == {"graphed": 0, "captured": 0}  # the CPU loop runs eagerly
     rows = PG.stages(spans, [], (spans[0].start_ns, spans[-1].end_ns))
     assert rows["token_step"]["n"] == 2 * (L - 1)
 
@@ -262,4 +278,5 @@ def test_evaluate_test_epoch_spans_the_copy_and_the_pick(small_slmft):
                                torch.Generator().manual_seed(0), beam_size=N, device="cpu")
     names = [s.name for s in spans if s.parent_id == 0]
     assert names == ["generate", "to_host", "fd_pick"]
-    assert all(s.counts == {} for s in spans if s.name != "token_step")
+    assert all(s.counts == {} for s in spans if s.name not in ("token_step", "token_loop"))
+    assert [s.counts for s in spans if s.name == "token_loop"] == [{"graphed": 0, "captured": 0}]
