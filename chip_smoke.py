@@ -18,6 +18,7 @@ shape), then PIRender's training (both stages, the render_train twin) and the
 ``--mesh`` layouts on one card, and time it all.
 
     python3 chip_smoke.py            # needs one CUDA card
+    python3 chip_smoke.py --lm       # device, build and phase 35 alone
 
 Phases (each prints its own lines; any failure exits 1 without the final
 line):
@@ -257,8 +258,26 @@ line):
     (``mesh_path``);
 34. the VQ attention at D = 48 and 96 by both routes (``attend`` and
     K2/K3), forward and backward, graph-timed at L = 256, 512, 768 and 1024
-    in fp32 and bf16; then the ``kernels`` JSON line and, last, the device
-    JSON line.
+    in fp32 and bf16;
+35. DeepSeek-V2-Lite at its published widths and depth
+    (``portbench/configs/dsv2_lite.json``, bf16, the decoder's seeded
+    ``init_weights``) through ``make_lm_generator`` at the ``dsv2_lite``
+    cell's call: 512 prompts of 512 ids prefilled in chunks of 128, 256
+    tokens sampled at top-k 50 (cache length 768). A call that captures the graph, then one with every
+    launch count set to 0 just before: K5 27 times a decode step (6,885),
+    K1-K4 0, all 255 decode steps replayed. Then the same call eagerly with
+    every K5 launch recorded: each held against ``latent_decode_plain`` on
+    its own inputs (relative error of each (row, head) output under 1e-2,
+    while a wrong kernel's that reads a tile of keys past t reads over it;
+    printed beside it, one key short and the scale without YaRN's
+    mscale^2), the position as a device tensor bitwise equal to the int,
+    and the eager tokens bitwise equal to the graphed call's. K5 timed at (512, 16, 576) over L = 768 at
+    t = 511, 640, 766: the kernel between CUDA events and from a graph, the
+    plain version, the library (SDPA over the cache as one key/value head,
+    values a view of its first 512, a bool mask of t) and the bound (bytes:
+    the live cache rows, q and the output);
+
+then the ``kernels`` JSON line and, last, the device JSON line.
 
 Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 989 TFLOP/s
 bf16 on tensor cores, 67 TFLOP/s fp32 on CUDA cores (K4), and for fp32
@@ -772,7 +791,7 @@ def _generate(kv_heads, n=N):
     cross_nq = (slm_cfg["dec_heads"] // (kv_heads or slm_cfg["dec_heads"])) * n
     slices = -(-cross_nq // MAX_NQ)
     want = {"decode_attention": (L - 1) * 4 * (1 + slices), "flash_attention_fwd": 0,
-            "flash_attention_bwd": 0, "nearest_code": 2}
+            "flash_attention_bwd": 0, "nearest_code": 2, "latent_decode": 0}
     check(launches == want, f"{tag}generation launches {launches} == {want} (K1 "
           f"on the self step and {slices} slice(s) of the cross step's {cross_nq} rows "
           "in 4 decoder layers x 255 steps, K4 twice, no K2/K3)")
@@ -863,7 +882,7 @@ def mqa_wide_reference():
 
 TRAIN_B, TRAIN_STEPS, WARMUP_STEPS, PROFILED_STEPS = 32, 10, 3, 3
 STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 20,
-                 "flash_attention_bwd": 20, "nearest_code": 2}
+                 "flash_attention_bwd": 20, "nearest_code": 2, "latent_decode": 0}
 
 
 def _slm(seed):
@@ -1144,9 +1163,9 @@ def train_timings(train):
 
 VQ_L, FT_B = 1024, 4
 VQ_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 12,
-                    "flash_attention_bwd": 12, "nearest_code": 1}
+                    "flash_attention_bwd": 12, "nearest_code": 1, "latent_decode": 0}
 FT_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 4,
-                    "flash_attention_bwd": 4, "nearest_code": 2}
+                    "flash_attention_bwd": 4, "nearest_code": 2, "latent_decode": 0}
 
 
 def _timed_steps(step, args, what, want_per_step):
@@ -1266,7 +1285,7 @@ def vq_train_reference():
 
 
 SPK_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 18,
-                     "flash_attention_bwd": 18, "nearest_code": 1}
+                     "flash_attention_bwd": 18, "nearest_code": 1, "latent_decode": 0}
 
 
 def _spk_model(seed):
@@ -1673,7 +1692,8 @@ def real_files_path():
                                           "--prefetch", "2", "epochs", "1"])
         got = runs["train_vq"]["launches"]
         want = {"decode_attention": 0, "flash_attention_fwd": 12 * RF_TRAIN,
-                "flash_attention_bwd": 12 * RF_TRAIN, "nearest_code": RF_TRAIN + RF_TEST}
+                "flash_attention_bwd": 12 * RF_TRAIN, "nearest_code": RF_TRAIN + RF_TEST,
+                "latent_decode": 0}
         check(got == want, f"train_vq launches == {want}: 12 K2, 12 K3 and 1 K4 a training "
               "step at L = 512, 1 K4 a validation clip at L = 256")
         records = {"train_vq": run_record(os.path.join(root, "vq"), "train_vq")}
@@ -1695,7 +1715,7 @@ def real_files_path():
         steps = -(-(2 * RF_CONVERSATIONS - 2) // 32)  # 19 conversations train
         say(f"train_s2s_pretrain launches in each epoch's training steps: {per_epoch}")
         want = [{"decode_attention": 0, "flash_attention_fwd": 20 * steps,
-                 "flash_attention_bwd": 20 * steps, "nearest_code": k4}
+                 "flash_attention_bwd": 20 * steps, "nearest_code": k4, "latent_decode": 0}
                 for k4 in (2 * steps, 0)]
         check(per_epoch == want, f"train_s2s_pretrain with the token cache: {steps} steps an "
               "epoch, 20 K2 and 20 K3 a step, K4 twice a batch in epoch 1 and 0 times in "
@@ -1720,7 +1740,7 @@ def real_files_path():
         batches = -(-RF_TEST // 4)
         got = runs["test_s2s_pretrain"]["launches"]
         want = {"decode_attention": batches * 2 * 4 * (L - 1), "flash_attention_fwd": 0,
-                "flash_attention_bwd": 0, "nearest_code": 2 * batches}
+                "flash_attention_bwd": 0, "nearest_code": 2 * batches, "latent_decode": 0}
         check(got == want, f"test_s2s_pretrain launches == {want}: per batch of 4 clips, K1 "
               "for 255 tokens x 4 layers x (self, cross) and K4 for the two VQ encodes")
         with open(pred, "rb") as f:
@@ -1740,9 +1760,9 @@ def real_files_path():
 
 BIWI_L, BIWI_N, BIWI_CLIPS, BIWI_B, BIWI_VDIM = 120, 50, 4, 4, 70110
 BIWI_GEN_LAUNCHES = {"decode_attention": 8 * (BIWI_L - 1), "flash_attention_fwd": 0,
-                     "flash_attention_bwd": 0, "nearest_code": 2}
+                     "flash_attention_bwd": 0, "nearest_code": 2, "latent_decode": 0}
 BIWI_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 4,
-                      "flash_attention_bwd": 4, "nearest_code": 2}
+                      "flash_attention_bwd": 4, "nearest_code": 2, "latent_decode": 0}
 # half the mesh's vertices, as test_biwi's synthetic mouth map
 BIWI_MOUTH = list(range(BIWI_VDIM // 6))
 
@@ -1909,7 +1929,7 @@ def test_biwi_twin():
         launches = dict(kernels.LAUNCHES)
         n = test_biwi.SYNTHETIC_CLIPS
         want = {"decode_attention": 0, "flash_attention_fwd": 4 * n, "flash_attention_bwd": 0,
-                "nearest_code": 2 * n}
+                "nearest_code": 2 * n, "latent_decode": 0}
         say(f"test_biwi: exit {rc}, {secs:.1f} s, launches {launches}")
         check(rc == 0 and launches == want, f"test_biwi ran to its end with launches {want} "
               "(a clip: K2 in 4 decoder layers, K4 for the two VQ encodes)")
@@ -2071,7 +2091,7 @@ def converter_path():
         secs = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
         want = {"decode_attention": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                "nearest_code": 16}
+                "nearest_code": 16, "latent_decode": 0}
         say(f"train_converter: exit {rc}, {secs:.1f} s, launches {launches}")
         check(rc == 0 and launches == want, f"train_converter ran to its end with launches "
               f"{want} (8 clips x 2 epochs, K4 once a step)")
@@ -2100,7 +2120,7 @@ def converter_path():
 
     med, times, steps, _ = _timed_steps(logged, args, "converter", {
         "decode_attention": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-        "nearest_code": 1})
+        "nearest_code": 1, "latent_decode": 0})
     say(f"converter step B=1 L={BIWI_L} fp32, {CARD[-1]}, CUDA events: median "
         f"{med * 1e3:.2f} ms of {[round(t * 1e3, 2) for t in times]} -> "
         f"{BIWI_L / med:.0f} frames/s")
@@ -2171,11 +2191,11 @@ def speaker_timings():
 # --- the seq2seq listener path (ListenerGenerator) and the streaming sessions ---
 
 S2S_B, S2S_STEP_LAUNCHES = 4, {"decode_attention": 0, "flash_attention_fwd": 12,
-                               "flash_attention_bwd": 12, "nearest_code": 2}
+                               "flash_attention_bwd": 12, "nearest_code": 2, "latent_decode": 0}
 # a test_s2s batch: K1 for the self and the cross step of 6 decoder layers a
 # code, K2 in the 6 encoder layers (no attn_mask), K4 for the two VQ encodes
 S2S_GEN_LAUNCHES = {"decode_attention": (L - 1) * 6 * 2, "flash_attention_fwd": 6,
-                    "flash_attention_bwd": 0, "nearest_code": 2}
+                    "flash_attention_bwd": 0, "nearest_code": 2, "latent_decode": 0}
 S2S_RF_TRAIN, S2S_RF_TEST = 8, 4
 
 
@@ -2415,7 +2435,7 @@ def s2s_generate_path(train):
         run_record(os.path.join(root, "lg"), "train_s2s")
         steps = S2S_RF_TRAIN // S2S_B
         want = {"decode_attention": 0, "flash_attention_fwd": 12 * (steps + 2),
-                "flash_attention_bwd": 12 * steps, "nearest_code": 2 * steps + 2 * 2}
+                "flash_attention_bwd": 12 * steps, "nearest_code": 2 * steps + 2 * 2, "latent_decode": 0}
         check(runs["train_s2s"]["launches"] == want, f"train_s2s launches == {want}: {steps} "
               "steps (12 K2, 12 K3, 2 K4), then one validation batch through the model and "
               "the generator again (12 K2 and 2 K4 each)")
@@ -2492,7 +2512,7 @@ def streaming_path():
     launches = dict(kernels.LAUNCHES)
     n_tok = STREAM_ROUNDS * c
     want = {"decode_attention": STREAM_K1_PER_TOKEN * (1 + n_tok), "flash_attention_fwd": 0,
-            "flash_attention_bwd": 0, "nearest_code": 1}
+            "flash_attention_bwd": 0, "nearest_code": 1, "latent_decode": 0}
     say(f"launches of the streaming session (prompt + {n_tok} codes): {launches}")
     check(launches == want, f"streaming launches == {want} (K1 {STREAM_K1_PER_TOKEN} a code "
           "and for the prompt step, K4 once for the prompt, no K2/K3: the chunk extension "
@@ -2636,7 +2656,7 @@ def pool_path():
           and launches["decode_attention"] > 0, f"pool: K4 once a join ({n_streams}), K1 on "
           "every step, no K2/K3")
     want = {"decode_attention": 4 * STREAM_K1_PER_TOKEN, "flash_attention_fwd": 0,
-            "flash_attention_bwd": 0, "nearest_code": 0}
+            "flash_attention_bwd": 0, "nearest_code": 0, "latent_decode": 0}
     check(all(v == want for v in k1.values()),
           f"one generate of n codes launches K1 n x {STREAM_K1_PER_TOKEN} whatever the "
           f"occupancy: {k1}")
@@ -2762,7 +2782,7 @@ def speaker_streaming_path():
 
 SPEECH_SAMPLES, SPEECH_CLIPS = 77200, 4  # 241 conv frames: BIWI_L frames after the trim
 CT_STEP_LAUNCHES = {"decode_attention": 0, "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                    "nearest_code": 2}
+                    "nearest_code": 2, "latent_decode": 0}
 
 
 def _speech_audio(n, seed):
@@ -2965,7 +2985,7 @@ def codetalker_predict_path(train):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     say(f"launches of a CodeTalker predict of {BIWI_L} frames: {launches}")
-    check(launches == {**CT_STEP_LAUNCHES, "nearest_code": BIWI_L},
+    check(launches == {**CT_STEP_LAUNCHES, "nearest_code": BIWI_L, "latent_decode": 0},
           f"CodeTalker predict launches K4 once a frame ({BIWI_L}), no K1/K2/K3")
     k4 = k4_on_path(calls, "CodeTalker predict")
     with k4_calls(plain=True) as plain_calls:
@@ -3039,7 +3059,7 @@ def speech_files_path():
                                 "s": time.perf_counter() - t0}
         losses = [float(line.split("loss ")[1].split()[0]) for line in out.splitlines()
                   if "(motion" in line]
-        want = {**CT_STEP_LAUNCHES, "nearest_code": 2 * 2 * len(SPEECH_TRAIN_CLIPS)}
+        want = {**CT_STEP_LAUNCHES, "nearest_code": 2 * 2 * len(SPEECH_TRAIN_CLIPS), "latent_decode": 0}
         check(rc == 0 and runs["train_stage2"]["launches"] == want and len(losses) == 2
               and all(x == x and abs(x) != float("inf") for x in losses),
               f"train_stage2 on BIWI files: exit {rc}, launches "
@@ -3066,7 +3086,7 @@ def speech_files_path():
             preds.append({f: np.load(os.path.join(root, run, "pred", f)) for f in files})
         n = len(SPEECH_TEST_CLIPS)
         want = {"decode_attention": 0, "flash_attention_fwd": 4 * n, "flash_attention_bwd": 0,
-                "nearest_code": 2 * n}
+                "nearest_code": 2 * n, "latent_decode": 0}
         check(rc == 0 and runs["test_biwi_data_root"]["launches"] == want,
               f"test_biwi --data-root: exit {rc}, launches "
               f"{runs['test_biwi_data_root']['launches']} (want {want}: a clip K2 4, K4 2)")
@@ -3411,7 +3431,7 @@ AVATAR_RENDER = dict(flame_coeff_nc=56, coeff_nc=73, descriptor_nc=256, mapping_
 # 8 codes; K2 once in each of the listener VQ decoder's 6 layers, one masked
 # decode of the 1024-token buffer (L >= FLASH_MIN_LEN under a key mask)
 AVATAR_ROUND_LAUNCHES = {"decode_attention": 64, "flash_attention_fwd": 6,
-                         "flash_attention_bwd": 0, "nearest_code": 0}
+                         "flash_attention_bwd": 0, "nearest_code": 0, "latent_decode": 0}
 AVATAR_K2_ROUNDS = (3, 24, 128)  # the masked decode's lengths 8 k for K2's check
 
 
@@ -4057,6 +4077,153 @@ def mesh_path():
         shutil.rmtree(root, ignore_errors=True)
 
 
+LM_CONFIG = "portbench/configs/dsv2_lite.json"
+LM_B, LM_P, LM_T, LM_TOP_K = 512, 512, 256, 50  # the dsv2_lite cell's call
+LM_PREFILL = 65536  # tokens a prefill chunk, as the cell's traffic
+K5_TS = (511, 640, 766)
+K5_TOL = 1e-2  # relative error of a (row, head) output
+K5_TILE = 64  # keys a tile of K5
+
+
+def _k5_rel(got, want):
+    """The largest relative L2 error over the (row, head) outputs."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max()
+
+
+def _k5_times(q, cache, scale):
+    """K5 at q (R, 16, 576) over cache (R, L, 576) at each of ``K5_TS``:
+    the kernel, its plain version, SDPA and the bound, in ms."""
+    import torch.nn.functional as F
+
+    from dyadic_interaction_modeling_tpu_torch.kernels.latent_decode import (
+        DV, latent_decode, latent_decode_plain)
+
+    rows, length = cache.shape[:2]
+    out = {}
+    for t in K5_TS:
+        mask = (torch.arange(length, device="cuda") <= t).view(1, 1, 1, length)
+        qs, ks, vs = q[:, None], cache[:, None], cache[:, None, :, :DV]
+
+        def kern(i=0, t=t):
+            return latent_decode(q, cache, t, scale=scale)
+
+        def plain(i=0, t=t):
+            return latent_decode_plain(q, cache, t, scale=scale)
+
+        def sdpa(i=0, mask=mask):
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+
+        try:
+            lib = dict(library_ms=cuda_ms(sdpa, 7), library_graph_ms=graph_ms(sdpa, inner=1),
+                       library_rel_err=float(_k5_rel(sdpa()[:, 0], plain())))
+        except RuntimeError as e:  # no SDPA backend takes these widths
+            lib = dict(library_error=str(e)[:200])
+        nbytes = rows * ((t + 1) * cache.shape[2] + q.shape[1] * (q.shape[2] + DV)) * 2
+        ops = 2 * rows * q.shape[1] * (t + 1) * (q.shape[2] + DV)
+        bound, by = bound_ms(nbytes, ops, torch.bfloat16)
+        out[t] = dict(ms=cuda_ms(kern, 7), graph_ms=graph_ms(kern, inner=1),
+                      plain_ms=cuda_ms(plain, 7), **lib, bound_ms=bound, bound_by=by)
+        say(f"K5 ({rows}, 16, 576) L={length} t={t}: {out[t]}")
+    return out
+
+
+@phase
+def lm_generate_path():
+    """Phase 35: DeepSeek-V2-Lite through ``make_lm_generator`` at the
+    ``dsv2_lite`` cell's call, K5 held against its plain version on every
+    launch of an eager call, and K5's times."""
+    from unittest import mock
+
+    from dyadic_interaction_modeling_tpu_torch import kernels
+    from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import make_lm_generator
+    from dyadic_interaction_modeling_tpu_torch.kernels.latent_decode import (
+        latent_decode, latent_decode_plain)
+    from dyadic_interaction_modeling_tpu_torch.models import deepseek_v2, xtrans
+    from dyadic_interaction_modeling_tpu_torch.utils.profiling import recording
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), LM_CONFIG)) as f:
+        cfg = deepseek_v2.DeepseekV2Config.from_dict(json.load(f))
+    model = deepseek_v2.DeepseekV2Decoder.empty(cfg, "cuda", torch.bfloat16,
+                                                prefill_tokens=LM_PREFILL).eval()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model.init_weights(g)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_B, LM_P), generator=g, device="cuda")
+    gen = make_lm_generator(model)
+    steps, layers = LM_T - 1, cfg.num_hidden_layers
+
+    def call(seed):
+        rng = torch.Generator(device="cuda").manual_seed(seed)
+        return gen(prompt, rng, LM_T, filter_frac=LM_TOP_K / cfg.vocab_size)
+
+    call(1)  # captures the graph
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with recording() as spans:
+        t0 = time.perf_counter()
+        graphed = call(2)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    graphed = graphed.clone()
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["latent_decode"] = layers * steps
+    check(launches == want, f"dsv2 call launches {launches} == {want} (K5 {layers} a decode "
+          f"step x {steps})")
+    (loop,) = [s.counts for s in spans if s.name == "token_loop"]
+    (top,) = [s.counts for s in spans if s.name == "generate"]
+    check(loop["graphed"] == steps and loop["captured"] == 0,
+          f"dsv2 token loop {loop}: all {steps} decode steps replayed")
+    check(bool(((graphed >= 0) & (graphed < cfg.vocab_size)).all()), "dsv2 tokens in range")
+    say(f"dsv2 call ({LM_B} x {LM_P} prompt, {LM_T} tokens): {call_s:.3f} s, "
+        f"{LM_B * LM_T / call_s:.1f} tokens/s, expert_load_pm {top['expert_load_pm']}, "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    seen = []
+    captured = {}
+    rs = cfg.rope_scaling
+    mscale2 = deepseek_v2.yarn_mscale(rs["factor"], rs["mscale_all_dim"]) ** 2
+
+    def recorded(q, cache, t, *, scale, dv):
+        out = latent_decode(q, cache, t, scale=scale, dv=dv)
+        at = torch.tensor(t, dtype=torch.int32, device="cuda")
+        want = latent_decode_plain(q, cache, t, scale=scale, dv=dv)
+        faults = (latent_decode_plain(q, cache, t - 1, scale=scale, dv=dv),
+                  latent_decode_plain(q, cache, t + K5_TILE, scale=scale, dv=dv),
+                  latent_decode_plain(q, cache, t, scale=scale / mscale2, dv=dv))
+        same = torch.equal(latent_decode(q, cache, at, scale=scale, dv=dv), out)
+        seen.append(torch.stack([_k5_rel(out, want), *(_k5_rel(f, want) for f in faults),
+                                 torch.full((), float(same), device="cuda")]))
+        if t == LM_P + steps - 1 and not captured:
+            captured.update(q=q.clone(), cache=cache.clone(), scale=scale)
+        return out
+
+    xtrans._GRAPHS.clear()  # the graph's cache and buffers make room for the eager call's
+    torch.cuda.empty_cache()
+    with mock.patch.object(deepseek_v2, "latent_decode", recorded), \
+            mock.patch.object(xtrans, "graph_engages", lambda *a: False):
+        eager = call(2)
+    errs = torch.stack(seen).cpu()
+    check(len(seen) == layers * steps, f"{len(seen)} K5 launches recorded == {layers * steps}")
+    k5_err, short, past, unscaled = (float(e) for e in errs[:, :4].max(dim=0).values)
+    check(k5_err < K5_TOL < past,
+          f"K5 on every launch of the eager call: largest relative error {k5_err:.2e} < "
+          f"{K5_TOL} < {past:.2e}, a wrong kernel's that reads a tile of keys past t")
+    say(f"the largest relative error of other wrong kernels: one key short {short:.2e}, "
+        f"the scale without YaRN's mscale^2 {unscaled:.2e}")
+    check(bool(errs[:, 4].all()), "K5 with the position on the card == with the int, bitwise")
+    check(torch.equal(eager, graphed), "dsv2 eager tokens == graphed tokens, bitwise")
+    q, cache, scale = captured["q"], captured["cache"], captured["scale"]
+    del model, gen, graphed, eager
+    xtrans._GRAPHS.clear()
+    torch.cuda.empty_cache()
+    times = _k5_times(q, cache, scale)
+    return {"launches": launches, "call_s": call_s, "k5_max_rel_err": k5_err,
+            "wrong_kernel_max_rel_err": {"one_key_short": short, "tile_past_t": past,
+                                         "scale_without_mscale2": unscaled}, "k5": times,
+            "expert_load_pm": top["expert_load_pm"]}
+
+
 @phase
 def vq_attention_routes():
     """The VQ attention by both routes, forward and backward, graph-timed
@@ -4350,6 +4517,16 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
         "render_train": {k: v for k, v in rt.items() if k != "launches"}, "mesh": mesh}
 
 
+def _k5_entry(lm) -> dict:
+    return {"name": "latent_decode", "route": "cuda",
+            "source": "dyadic_interaction_modeling_tpu_torch/csrc/latent_decode.cu",
+            "replaces": None, "launches": lm["launches"]["latent_decode"],
+            "launches_by_path": {"dsv2_lite_generate": lm["launches"]["latent_decode"]},
+            "max_rel_err": lm["k5_max_rel_err"], "bound_by": "bytes",
+            "cases": {f"({LM_B},16,576) L={LM_P + LM_T} t={t} bf16": c
+                      for t, c in lm["k5"].items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -4363,6 +4540,14 @@ def main() -> int:
     smi = device()
     built = build()
     build_s, ptxas = built if built else (None, None)
+    if sys.argv[1:] == ["--lm"]:
+        lm = lm_generate_path()
+        if FAILURES or None in (smi, build_s, lm):
+            say(f"FAILED: {FAILURES}")
+            return 1
+        say(json.dumps({"kernels": [_k5_entry(lm)], "dsv2_call_s": lm["call_s"],
+                        "expert_load_pm": lm["expert_load_pm"]}))
+        return 0
     k4 = k4_check()
     k1 = k1_check()
     k23 = k23_check()
@@ -4437,19 +4622,23 @@ def main() -> int:
     mesh = mesh_path()
     torch.cuda.empty_cache()
     routes = vq_attention_routes()
+    torch.cuda.empty_cache()
+    lm = lm_generate_path()
     if FAILURES or None in (smi, build_s, k4, k1, k23, t, mqa_launches, mqa_wide, mqa_ref,
                             mqa_wide_ref, train, train_ref, tt, vq, vq_ref, ft, ft_ref,
                             ft64, spk, spk_ref, rf, routes, *biwi.values(), *s2s.values(),
-                            *speech.values(), render, render_files, avatar, rt, mesh):
+                            *speech.values(), render, render_files, avatar, rt, mesh, lm):
         say(f"FAILED: {FAILURES}")
         return 1
     refs = {"train": train_ref, "vq_train": vq_ref, "finetune": ft_ref,
             "speaker_vq_train": spk_ref, "speaker_finetune": biwi["finetune"],
             "s2s_train": s2s["train_ref"], "codetalker_train": speech["train"],
             "codetalker_predict": speech["predict"]}
-    say(json.dumps(kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf,
-                                k4, k1, k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi,
-                                s2s, speech, render, avatar, rt, mesh)))
+    line = kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k4, k1,
+                        k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s, speech, render,
+                        avatar, rt, mesh)
+    line["kernels"].append(_k5_entry(lm))
+    say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

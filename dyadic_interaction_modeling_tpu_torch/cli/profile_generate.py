@@ -21,14 +21,27 @@ position ``t``, 64 positions a row; then the profiled call's token steps
 replayed from a CUDA graph, and the graphs the warm-up call captured with
 their capture's host time. Needs a CUDA device.
 
+    python -m dyadic_interaction_modeling_tpu_torch.cli.profile_generate --lm CONFIG.json
+
+does the same for a context-free decoder (``models/deepseek_v2.py``, the
+DeepSeek-V2 keys of ``CONFIG.json``, e.g. ``portbench/configs/dsv2_lite.json``,
+the decoder's ``init_weights``, the benchmark cell's seeded weights, bf16)
+through ``engine.pt_engine.make_lm_generator`` at the benchmark's shape:
+512 prompts of 512 random ids, 256 tokens sampled a sequence at top-k 50;
+besides the stages it prints the prefill's tokens, the ``moe`` spans, the
+token loop's counters (``graphed``, ``captured``) and the call's
+``expert_load_pm``.
+
 The analysis (``device_ops``, ``host_idle``, ``stages``, ``by_position``,
 ``graph_numbers``) runs on the CPU too, on any profile and spans.
 """
 
 from __future__ import annotations
 
+import argparse
 import bisect
 import dataclasses
+import json
 import re
 import statistics
 import subprocess
@@ -38,6 +51,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 CLIPS, SAMPLES, LENGTH, SEED = 256, 10, 256, 0
+# the context-free decoder's call: sequences, prompt ids, sampled tokens, top-k
+LM_SEQUENCES, LM_PROMPT, LM_TOKENS, LM_TOP_K = 512, 512, 256, 50
 LOOP = ("token_loop", "loop_setup", "token_step")
 # the stages of one generate call and of the wait for its candidates
 CALL = ("generate", "encode", "vq_decode", "to_host") + LOOP
@@ -259,7 +274,69 @@ def graph_numbers(spans) -> dict:
             "capture_ms": sum(sp.ns for sp in spans if sp.name == "capture") / 1e6}
 
 
-def main() -> int:
+def _print_profile(spans, ops, window: Tuple[int, int]) -> Dict[str, Dict[str, float]]:
+    """The window's wall time and busy share, the kernels with the most
+    device time and the stages; returns the stages' rows."""
+    t0, t1 = window
+    rows = stages(spans, ops, window)
+    wall = (t1 - t0) * 1e-9
+    idle = sum(r["idle_s"] for r in rows.values())
+    print(f"profiled batch: wall {wall * 1e3:.1f} ms, device busy {(wall - idle) * 1e3:.1f} ms "
+          f"({100 * (1 - idle / wall):.1f}%), {len(ops)} device operations, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    by_name = {}
+    for name, s, e, _ in ops:
+        tot, cnt = by_name.get(name, (0, 0))
+        by_name[name] = (tot + e - s, cnt + 1)
+    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {tot / 1e6:9.2f} ms  {cnt:6d} x  {name[:100]}")
+    print(f"{'stage':<12} {'spans':>6} {'host self ms':>13} {'device ms':>10} {'idle ms':>9}")
+    for name, r in rows.items():
+        print(f"{name:<12} {r['n']:>6} {r['host_s'] * 1e3:>13.2f} {r['device_s'] * 1e3:>10.2f} "
+              f"{r['idle_s'] * 1e3:>9.2f}")
+    return rows
+
+
+def profile_lm(config: str) -> int:
+    """One warm-up call and one profiled call of ``make_lm_generator`` on a
+    DeepSeek-V2 decoder built from ``config``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..engine.pt_engine import make_lm_generator
+    from ..models.deepseek_v2 import DeepseekV2Config, DeepseekV2Decoder
+    from ..utils.profiling import recording
+
+    with open(config) as f:
+        cfg = DeepseekV2Config.from_dict(json.load(f))
+    model = DeepseekV2Decoder.empty(cfg, "cuda", torch.bfloat16).eval()
+    rng = torch.Generator(device="cuda").manual_seed(SEED)
+    model.init_weights(rng)
+    ids = torch.randint(0, cfg.vocab_size, (LM_SEQUENCES, LM_PROMPT), device="cuda",
+                        generator=rng)
+    gen = make_lm_generator(model)
+    frac = LM_TOP_K / cfg.vocab_size
+    with recording() as warm:
+        gen(ids, rng, LM_TOKENS, filter_frac=frac)  # warm-up: captures the graph
+        torch.cuda.synchronize()
+    with recording() as spans, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time_ns()
+        gen(ids, rng, LM_TOKENS, filter_frac=frac)
+        torch.cuda.synchronize()
+        t1 = time.time_ns()
+    _print_profile(spans, device_ops(prof), (t0, t1))
+    (pre,) = [sp for sp in spans if sp.name == "prefill"]
+    (call,) = [sp for sp in spans if sp.name == "generate"]
+    (loop,) = [sp for sp in spans if sp.name == "token_loop"]
+    moe = [sp for sp in spans if sp.name == "moe"]
+    print(f"prefill: {pre.counts['tokens']} tokens in {pre.ns / 1e6:.1f} ms of host time, "
+          f"{len(moe)} moe spans (the prefill's: the decode steps replay from the graph)")
+    print(f"token loop: {loop.counts}, expert_load_pm {call.counts['expert_load_pm']}; "
+          f"the warm-up call captured "
+          f"{graph_numbers(warm)['captured']} graph(s)")
+    return 0
+
+
+def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..config import slm_defaults, vq_listener_defaults
@@ -269,11 +346,16 @@ def main() -> int:
     from ..models.slm import SLMFT
     from ..utils.profiling import recording
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--lm", help="a DeepSeek-V2 config.json: profile make_lm_generator")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0])
+    if args.lm:
+        return profile_lm(args.lm)
 
     torch.manual_seed(SEED)
     model = SLMFT(slm_defaults(), vq_listener_defaults()).to("cuda", torch.bfloat16).eval()
@@ -291,22 +373,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t1 = time.time_ns()
     ops = device_ops(prof)
-    rows = stages(spans, ops, (t0, t1))
-    wall = (t1 - t0) * 1e-9
-    idle = sum(r["idle_s"] for r in rows.values())
-    print(f"profiled batch: wall {wall * 1e3:.1f} ms, device busy {(wall - idle) * 1e3:.1f} ms "
-          f"({100 * (1 - idle / wall):.1f}%), {len(ops)} device operations, peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    by_name = {}
-    for name, s, e, _ in ops:
-        tot, cnt = by_name.get(name, (0, 0))
-        by_name[name] = (tot + e - s, cnt + 1)
-    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"  {tot / 1e6:9.2f} ms  {cnt:6d} x  {name[:100]}")
-    print(f"{'stage':<12} {'spans':>6} {'host self ms':>13} {'device ms':>10} {'idle ms':>9}")
-    for name, r in rows.items():
-        print(f"{name:<12} {r['n']:>6} {r['host_s'] * 1e3:>13.2f} {r['device_s'] * 1e3:>10.2f} "
-              f"{r['idle_s'] * 1e3:>9.2f}")
+    rows = _print_profile(spans, ops, (t0, t1))
     nums = token_numbers(spans, rows)
     print(f"token step: host {nums['host_us_per_token']:.1f} us (median), device "
           f"{nums['device_us_per_token']:.1f} us; token loop's idle "

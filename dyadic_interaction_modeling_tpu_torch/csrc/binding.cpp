@@ -1,6 +1,7 @@
 // Python binding of the port's CUDA kernels: the one source that includes
 // PyTorch's headers (they take the bulk of the build time). Its callers, the
-// wrappers in kernels/decode.py, kernels/attention.py and kernels/vq.py,
+// wrappers in kernels/decode.py, kernels/attention.py, kernels/vq.py and
+// kernels/latent_decode.py,
 // check device, dtype, shape and contiguity and raise on what a kernel does
 // not take. Each function here allocates its outputs (and scratch), launches
 // on PyTorch's current stream of the input's device and checks the launch.
@@ -133,6 +134,24 @@ torch::Tensor vq_argmin(const torch::Tensor& z, const torch::Tensor& codebook) {
   return keys.view(torch::kInt).view({n, 2}).select(1, 0);  // little-endian low words
 }
 
+// K5: the latent rows of (rows, 16, 576) queries over (rows, L, 576) cache rows.
+torch::Tensor latent_decode(const torch::Tensor& q, const torch::Tensor& cache,
+                            const c10::optional<torch::Tensor>& t, int64_t t_val,
+                            double scale) {
+  const c10::cuda::CUDAGuard guard(q.device());
+  const int rows = (int)q.size(0), L = (int)cache.size(1);
+  auto out = torch::empty({q.size(0), LATENT_HEADS, LATENT_DV}, q.options());
+  int64_t n_part = 0;
+  latent_decode_scratch(rows, L, (int)t_val, t.has_value(), &n_part);
+  auto part = torch::empty({n_part}, q.options().dtype(torch::kFloat));
+  C10_CUDA_CHECK(latent_decode_launch(
+      q.data_ptr(), cache.data_ptr(), t ? t->data_ptr<int32_t>() : nullptr, (int)t_val,
+      out.data_ptr(), n_part ? part.data_ptr<float>() : nullptr, rows, L, (float)scale,
+      at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -140,4 +159,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_fwd", &flash_attention_fwd, "K2: flash attention forward");
   m.def("flash_attention_bwd", &flash_attention_bwd, "K3: flash attention backward");
   m.def("vq_argmin", &vq_argmin, "K4: nearest-codebook argmin");
+  m.def("latent_decode", &latent_decode, "K5: latent (MLA) decode attention");
 }

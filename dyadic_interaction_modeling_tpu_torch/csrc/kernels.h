@@ -78,4 +78,21 @@ cudaError_t vq_argmin_launch(const float* z, const float* codebook,
                              unsigned long long* keys, int n, int n_e, int d,
                              cudaStream_t stream);
 
+// K5, latent_decode.cu. q (rows, LATENT_HEADS, LATENT_DK) and the latent
+// cache (rows, L, LATENT_DK), bf16, contiguous; out (rows, LATENT_HEADS,
+// LATENT_DV) bf16: softmax(q c^T * scale) c[:, :LATENT_DV] over the cache
+// positions <= t. t_ptr (device int32) overrides t_val when not null; an
+// unbounded call passes L - 1. `partials` (fp32) is the size
+// latent_decode_scratch gives for the same arguments (null when 0).
+#define LATENT_HEADS 16
+#define LATENT_DK 576
+#define LATENT_DV 512
+
+void latent_decode_scratch(int rows, int L, int t_val, bool t_on_device,
+                           int64_t* partial_floats);
+
+cudaError_t latent_decode_launch(const void* q, const void* cache, const int32_t* t_ptr,
+                                 int t_val, void* out, float* partials, int rows, int L,
+                                 float scale, cudaStream_t stream);
+
 }  // extern "C"

@@ -18,7 +18,10 @@ Counterpart of ``dyadic_interaction_modeling_tpu/engine/pt_engine.py``:
 * ``make_speaker_generator`` (:236-269) does the same for SpeakerSLMFT's
   BIWI speaker generation (EMOCA candidates, picked by vertex L2), with
   ``BIWI_SPEAKER_IDS`` and ``speaker_ids_from_names`` (:36-41, :321);
-  ``make_speaker_train_step`` is its teacher-forced finetune step.
+  ``make_speaker_train_step`` is its teacher-forced finetune step;
+* ``make_lm_generator`` (no counterpart: the JAX package runs no
+  context-free language model) samples from a context-free decoder such as
+  ``models/deepseek_v2.DeepseekV2Decoder``: prompt ids in, sampled ids out.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ..metrics.eval_utils import (
 )
 from ..models.slm import SLMFT
 from ..models.xtrans import IGNORE, generate_tokens
-from ..utils.profiling import span
+from ..utils.profiling import is_recording, span
 from .train_state import clip_by_global_norm
 
 log = logging.getLogger(__name__)
@@ -255,6 +258,46 @@ def make_speaker_generator(model) -> Callable:
         return (cands, tokens) if return_tokens else cands
 
     return generate
+
+
+def make_lm_generator(decoder) -> Callable:
+    """Batched sampling from a context-free decoder (``generate_tokens``'
+    protocol, ``context=None``): (prompt, generator, n_tokens) -> (B,
+    n_tokens) sampled ids, prompt (B, P) ids on the decoder's device. The
+    prompt is prefilled in one batched pass (its ``prefill`` span), then
+    each token is one cached step, replayed from a CUDA graph on the card.
+    ``greedy``, ``gumbel``, ``temperature`` and ``filter_frac`` pass through
+    to ``generate_tokens``. For a decoder with an ``expert_load`` buffer
+    (``models/deepseek_v2.py``), while the recorder is on, the ``generate``
+    span gets ``expert_load_pm``: the largest expert's token count over its
+    layer's mean in the call's decode steps, per mille (a host sync, so
+    only then)."""
+
+    @torch.no_grad()
+    def generate(prompt: torch.Tensor, generator: Optional[torch.Generator], n_tokens: int, *,
+                 greedy: bool = False, gumbel: Optional[torch.Tensor] = None,
+                 temperature: float = 1.0, filter_frac: float = 0.1) -> torch.Tensor:
+        load = getattr(decoder, "expert_load", None) if is_recording() else None
+        with span("generate") as call:
+            before = None if load is None else load.clone()
+            tokens = generate_tokens(decoder, prompt, n_tokens, None, None, generator,
+                                     greedy=greedy, gumbel=gumbel, temperature=temperature,
+                                     filter_frac=filter_frac)
+            if load is not None:
+                call.set(expert_load_pm=expert_load_pm((load - before).cpu()))
+        return tokens
+
+    return generate
+
+
+def expert_load_pm(load: torch.Tensor) -> int:
+    """The largest expert's token count over its layer's mean, per mille,
+    the largest over the layers of ``load`` (layers, E); 0 when empty."""
+    load = load.double()
+    mean = load.mean(dim=-1)
+    if not bool((mean > 0).any()):
+        return 0
+    return int(round(1000 * float((load.amax(dim=-1) / mean.clamp_min(1e-30)).max())))
 
 
 def make_speaker_train_step(model, optimizer: torch.optim.Optimizer,

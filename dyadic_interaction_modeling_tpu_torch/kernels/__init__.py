@@ -12,7 +12,8 @@ from __future__ import annotations
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention_fwd": 0,
-                             "flash_attention_bwd": 0, "nearest_code": 0}
+                             "flash_attention_bwd": 0, "nearest_code": 0,
+                             "latent_decode": 0}
 
 
 def reset_launch_counts() -> None:

@@ -34,7 +34,10 @@ its position as an int or as a (B,) tensor of each row's own, which a pool
 of sessions at different lengths gives K1 as a key mask. A cached step also
 takes it as a 0-d int32 tensor on the device, one position for the batch
 that the card reads, so that ``generate_tokens`` can replay its token step
-from a CUDA graph (``_TokenGraph``).
+from a CUDA graph (``_TokenGraph``). ``generate_tokens`` drives any decoder
+that brings ``head``, ``init_cache``, ``prefill`` and ``decode_step``: the
+``TokenDecoder`` here with its context, or a context-free one
+(``models/deepseek_v2.py``) with ``context=None``.
 """
 
 from __future__ import annotations
@@ -509,6 +512,27 @@ class TokenDecoder(nn.Module):
     def cross_kv(self, context: torch.Tensor):
         return self.attn_layers.cross_kv(context)
 
+    @property
+    def head(self) -> nn.Linear:
+        return self.to_logits
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """The self-attention cache of ``init_decoder_cache`` for this decoder."""
+        return init_decoder_cache(batch, max_len, self.depth, self.heads, self.dim_head, dtype,
+                                  self.kv_heads, device)
+
+    def prefill(self, prompt: torch.Tensor, cache, cross_kv,
+                context_mask: Optional[torch.Tensor] = None,
+                cross_groups: int = 1) -> Optional[torch.Tensor]:
+        """The prompt (B, P) through the cache, one ``decode_step`` a token:
+        the last position's (B, num_tokens) logits (None when P is 0)."""
+        logits = None
+        for i in range(prompt.shape[1]):
+            logits = self.decode_step(prompt[:, i: i + 1], cache, i, cross_kv, context_mask,
+                                      cross_groups)
+        return logits
+
     def decode_step(self, token: torch.Tensor, cache, t, cross_kv,
                     context_mask: Optional[torch.Tensor] = None,
                     cross_groups: int = 1) -> torch.Tensor:
@@ -610,19 +634,22 @@ def graph_engages(device: torch.device, start, gumbel: Optional[torch.Tensor]) -
             and not torch.is_autocast_enabled(device.type))
 
 
-def token_graph_key(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
-                    context: torch.Tensor, context_mask: Optional[torch.Tensor],
+def token_graph_key(decoder: nn.Module, prompt: torch.Tensor, seq_len: int,
+                    context: Optional[torch.Tensor], context_mask: Optional[torch.Tensor],
                     context_groups: int, temperature: float, filter_frac: float) -> tuple:
-    """What a graphed token step is captured for: the shapes, the prompt's
-    and the decoder's dtypes, the device, the addresses of the decoder's
-    weights (which the graph reads), ``context_groups`` and the sampling
-    settings. The generator is not part of it: a sampled step's uniform
-    draws are made from the call's generator outside the graph."""
+    """What a graphed token step is captured for: the shapes (the cache's
+    follow from the prompt's and ``seq_len``; no context for a context-free
+    decoder), the prompt's and the decoder's head's dtypes, the device, the
+    addresses of the decoder's weights and buffers (which the graph reads),
+    ``context_groups`` and the sampling settings. The generator is not part
+    of it: a sampled step's uniform draws are made from the call's generator
+    outside the graph."""
     weights = tuple(x.data_ptr() for x in itertools.chain(decoder.parameters(),
                                                            decoder.buffers()))
-    return (tuple(prompt.shape), prompt.dtype, seq_len, tuple(context.shape),
+    return (tuple(prompt.shape), prompt.dtype, seq_len,
+            None if context is None else tuple(context.shape),
             None if context_mask is None else tuple(context_mask.shape),
-            decoder.to_logits.weight.dtype, prompt.device, context_groups,
+            decoder.head.weight.dtype, prompt.device, context_groups,
             float(temperature), float(filter_frac), weights)
 
 
@@ -634,60 +661,64 @@ class _TokenGraph:
     runs ``decode_step`` at the position (a 0-d int32 tensor on the card)
     into the logits, and advances the position, so a replay costs the host
     one launch where the eager step issues ~100. A greedy and a sampled
-    graph share the buffers: the self-attention cache, the cross K/V, the
-    context mask, the logits, a sampled step's uniform draws, the (B, P +
-    seq_len) tokens and the position. A call copies its inputs in, runs the
-    prompt steps eagerly and replays a graph for each token step but the
-    last, which needs no decode. A graph is captured at the first call of
-    its kind, after one eager step on the capture stream (what a step sets up
-    at its first run on a stream, such as cuBLAS's workspace, is then set up
+    graph share the buffers: the decoder's cache (``init_cache``), with a
+    context the cross K/V and the context mask, the logits, a sampled step's
+    uniform draws, the (B, P + seq_len) tokens and the position. A call
+    copies its inputs in, runs the prompt through the cache eagerly
+    (``prefill``) and replays a graph for each token step but the last,
+    which needs no decode. A graph is captured at the first call of its
+    kind, after one eager step on the capture stream (what a step sets up at
+    its first run on a stream, such as cuBLAS's workspace, is then set up
     outside the capture). The uniform draws are made from the call's
     generator before each replay, so the steps read its Philox stream as the
     eager loop does, and the graph holds no generator state."""
 
-    def __init__(self, decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
-                 context: torch.Tensor, context_mask: Optional[torch.Tensor],
+    def __init__(self, decoder: nn.Module, prompt: torch.Tensor, seq_len: int,
+                 context: Optional[torch.Tensor], context_mask: Optional[torch.Tensor],
                  context_groups: int, temperature: float, filter_frac: float):
         (b, p), dev = prompt.shape, prompt.device
-        dtype, vocab = decoder.to_logits.weight.dtype, decoder.to_logits.weight.shape[0]
-        self.dtype, self.groups = dtype, context_groups
+        dtype, vocab = decoder.head.weight.dtype, decoder.head.weight.shape[0]
+        self.dtype = dtype
         self.temperature, self.filter_frac = temperature, filter_frac
-        self.cache = init_decoder_cache(b, p + seq_len, decoder.depth, decoder.heads,
-                                        decoder.dim_head, dtype, decoder.kv_heads, dev)
-        kv = (context.shape[0], decoder.kv_heads or decoder.heads, context.shape[1],
-              decoder.dim_head)
-        self.cross = [(torch.empty(kv, dtype=dtype, device=dev),
-                       torch.empty(kv, dtype=dtype, device=dev)) for _ in range(decoder.depth)]
-        self.mask = (None if context_mask is None else
-                     torch.empty(context_mask.shape, dtype=torch.bool, device=dev))
+        self.cache = decoder.init_cache(b, p + seq_len, dtype, dev)
+        # what decode_step and prefill take after the cache (and position)
+        self.ctx: tuple = ()
+        if context is not None:
+            kv = (context.shape[0], decoder.kv_heads or decoder.heads, context.shape[1],
+                  decoder.dim_head)
+            self.cross = [(torch.empty(kv, dtype=dtype, device=dev),
+                           torch.empty(kv, dtype=dtype, device=dev))
+                          for _ in range(decoder.depth)]
+            self.mask = (None if context_mask is None else
+                         torch.empty(context_mask.shape, dtype=torch.bool, device=dev))
+            self.ctx = (self.cross, self.mask, context_groups)
         self.logits = torch.empty(b, vocab, device=dev)
         self.uniform = torch.empty(b, vocab, device=dev)
         self.tokens = torch.empty(b, p + seq_len, dtype=prompt.dtype, device=dev)
         # the position: a (1,) int64 index for the writes, and its low 32 bits
         # (CUDA devices are little-endian) the 0-d int32 position decode_step
-        # and K1 read; one advance moves both
+        # and the kernels read; one advance moves both
         self.index = torch.zeros(1, dtype=torch.int64, device=dev)
         self.pos = self.index.view(torch.int32)[0]
         self.stream = torch.cuda.Stream(dev)
         self.graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
         self.launches: Dict[bool, Dict[str, int]] = {}  # kernel launches a replay
 
-    def _step(self, decoder: TokenDecoder, greedy: bool) -> None:
+    def _step(self, decoder: nn.Module, greedy: bool) -> None:
         noise = None if greedy else _gumbel(self.uniform)
         tok = sample_tokens(self.logits, greedy, self.temperature, self.filter_frac, noise)
         self.tokens.index_copy_(1, self.index, tok.to(self.tokens.dtype)[:, None])
-        logits = decoder.decode_step(tok[:, None], self.cache, self.pos, self.cross, self.mask,
-                                     self.groups)
+        logits = decoder.decode_step(tok[:, None], self.cache, self.pos, *self.ctx)
         self.logits.copy_(logits)
         self.index.add_(1)
 
-    def _warm_up(self, decoder: TokenDecoder, greedy: bool) -> None:
+    def _warm_up(self, decoder: nn.Module, greedy: bool) -> None:
         self.stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(self.stream):
             self._step(decoder, greedy)
         torch.cuda.current_stream().wait_stream(self.stream)
 
-    def _capture(self, decoder: TokenDecoder, greedy: bool) -> torch.cuda.CUDAGraph:
+    def _capture(self, decoder: nn.Module, greedy: bool) -> torch.cuda.CUDAGraph:
         graph, before = torch.cuda.CUDAGraph(), dict(LAUNCHES)
         with span("capture"), torch.cuda.graph(graph, stream=self.stream,
                                                capture_error_mode="thread_local"):
@@ -699,23 +730,22 @@ class _TokenGraph:
         self.graphs[greedy] = graph
         return graph
 
-    def run(self, decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
-            context: torch.Tensor, context_mask: Optional[torch.Tensor],
+    def run(self, decoder: nn.Module, prompt: torch.Tensor, seq_len: int,
+            context: Optional[torch.Tensor], context_mask: Optional[torch.Tensor],
             generator: Optional[torch.Generator], greedy: bool
             ) -> Tuple[torch.Tensor, int, bool]:
         """(B, seq_len) tokens, the token steps replayed from a graph, and
         whether this call captured one."""
         p = prompt.shape[1]
         with span("loop_setup"):
-            for (k, v), (ks, vs) in zip(decoder.cross_kv(context.to(self.dtype)), self.cross):
-                ks.copy_(k)
-                vs.copy_(v)
-            if self.mask is not None:
-                self.mask.copy_(context_mask)
-            for i in range(p):
-                logits = decoder.decode_step(prompt[:, i: i + 1], self.cache, i, self.cross,
-                                             self.mask, self.groups)
-            self.logits.copy_(logits)
+            if context is not None:
+                for (k, v), (ks, vs) in zip(decoder.cross_kv(context.to(self.dtype)),
+                                            self.cross):
+                    ks.copy_(k)
+                    vs.copy_(v)
+                if self.mask is not None:
+                    self.mask.copy_(context_mask)
+            self.logits.copy_(decoder.prefill(prompt, self.cache, *self.ctx))
             self.index.fill_(p)
         graph, graphed, captured = self.graphs.get(greedy), 0, False
         for i in range(seq_len - 1):
@@ -743,26 +773,35 @@ class _TokenGraph:
 # each decoder's _TokenGraph with its key, only the latest key's, for as long
 # as the decoder lives (not an attribute: deep copies and pickles of the
 # decoder stay free of graphs and streams)
-_GRAPHS: "weakref.WeakKeyDictionary[TokenDecoder, Tuple[tuple, _TokenGraph]]" = (
+_GRAPHS: "weakref.WeakKeyDictionary[nn.Module, Tuple[tuple, _TokenGraph]]" = (
     weakref.WeakKeyDictionary())
 
 
 @torch.no_grad()
-def generate_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
-                    context: torch.Tensor, context_mask: Optional[torch.Tensor],
+def generate_tokens(decoder: nn.Module, prompt: torch.Tensor, seq_len: int,
+                    context: Optional[torch.Tensor] = None,
+                    context_mask: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
                     greedy: bool = False, context_groups: int = 1,
                     gumbel: Optional[torch.Tensor] = None, temperature: float = 1.0,
                     filter_frac: float = 0.1) -> torch.Tensor:
     """KV-cached autoregressive sampling: (B, seq_len) generated tokens.
 
-    Cross K/V are computed once, then one cached ``decode_step`` per token.
-    Sampling (``sample_tokens``) follows the reference defaults: top-k
-    keep-``filter_frac`` (10%) filtering, ``temperature`` 1.0, categorical
-    sampling as Gumbel-max in fp32. ``gumbel`` (seq_len, B, vocab) injects
-    the noise (then ``generator`` is unused), so a sampled stream can be held
-    token-exact against another implementation fed the same noise.
-    ``prompt`` (B, P) is consumed through the cache and not returned.
+    The decoder brings ``head`` (its logits' ``nn.Linear``), ``init_cache(b,
+    max_len, dtype, device)``, ``prefill(prompt, cache, ...)`` (the prompt
+    through the cache, the last position's logits) and ``decode_step(token,
+    cache, t, ...)``; with a ``context`` (``TokenDecoder``) also
+    ``cross_kv``, and both calls take the cross K/V, the context mask and
+    ``context_groups`` after their own arguments. A context-free decoder
+    (``models/deepseek_v2.DeepseekV2Decoder``) takes ``context=None``. The
+    cross K/V are computed once, the prompt is prefilled, then one cached
+    ``decode_step`` per token. Sampling (``sample_tokens``) follows the
+    reference defaults: top-k keep-``filter_frac`` (10%) filtering,
+    ``temperature`` 1.0, categorical sampling as Gumbel-max in fp32.
+    ``gumbel`` (seq_len, B, vocab) injects the noise (then ``generator`` is
+    unused), so a sampled stream can be held token-exact against another
+    implementation fed the same noise. ``prompt`` (B, P) is consumed through
+    the cache and not returned.
 
     ``context_groups``: best-of-N sharing - ``prompt`` has N*B0 rows
     (sample-major) while ``context`` / ``context_mask`` carry the B0 distinct
@@ -799,8 +838,8 @@ def generate_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
     return tokens
 
 
-def _eager_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
-                  context: torch.Tensor, context_mask: Optional[torch.Tensor],
+def _eager_tokens(decoder: nn.Module, prompt: torch.Tensor, seq_len: int,
+                  context: Optional[torch.Tensor], context_mask: Optional[torch.Tensor],
                   generator: Optional[torch.Generator], greedy: bool, context_groups: int,
                   gumbel: Optional[torch.Tensor], temperature: float,
                   filter_frac: float) -> torch.Tensor:
@@ -808,16 +847,15 @@ def _eager_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
     b, p = prompt.shape
     with span("token_loop", graphed=0, captured=0):
         with span("loop_setup"):
-            dtype = decoder.to_logits.weight.dtype
+            dtype = decoder.head.weight.dtype
             device = prompt.device
-            cross = decoder.cross_kv(context.to(dtype))
-            mask = None if context_mask is None else context_mask.to(torch.bool).contiguous()
-            cache = init_decoder_cache(b, p + seq_len, decoder.depth, decoder.heads,
-                                       decoder.dim_head, dtype, decoder.kv_heads, device)
-            logits = None
-            for i in range(p):
-                logits = decoder.decode_step(prompt[:, i: i + 1], cache, i, cross, mask,
-                                             context_groups)
+            ctx: tuple = ()
+            if context is not None:
+                cross = decoder.cross_kv(context.to(dtype))
+                mask = None if context_mask is None else context_mask.to(torch.bool).contiguous()
+                ctx = (cross, mask, context_groups)
+            cache = decoder.init_cache(b, p + seq_len, dtype, device)
+            logits = decoder.prefill(prompt, cache, *ctx)
             tokens = torch.empty(b, seq_len, dtype=prompt.dtype, device=device)
         for i in range(seq_len):
             with span("token_step", t=p + i):
@@ -825,6 +863,5 @@ def _eager_tokens(decoder: TokenDecoder, prompt: torch.Tensor, seq_len: int,
                                     None if gumbel is None else gumbel[i], generator)
                 tokens[:, i] = tok.to(prompt.dtype)
                 if i + 1 < seq_len:  # the last token's logits would go unused
-                    logits = decoder.decode_step(tokens[:, i: i + 1], cache, p + i, cross,
-                                                 mask, context_groups)
+                    logits = decoder.decode_step(tokens[:, i: i + 1], cache, p + i, *ctx)
     return tokens

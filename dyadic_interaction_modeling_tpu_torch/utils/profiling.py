@@ -20,7 +20,12 @@ card's idle time under them: ``generate``, ``encode``, ``token_loop``
 ``captured``, 1 when the call captured one) with ``loop_setup``, one
 ``token_step`` a sampled token (counter ``t``, the cache position it decodes
 at) and ``capture`` (a graph's capture, in a token step), ``vq_decode``; in
-``evaluate_test_epoch`` ``to_host`` and ``fd_pick``.
+``evaluate_test_epoch`` ``to_host`` and ``fd_pick``. A context-free decoder's
+call (``make_lm_generator``, ``models/deepseek_v2.py``) has ``generate``
+(with ``expert_load_pm``, read only while recording: the largest expert's
+token count over its layer's mean in the call's decode steps, per mille),
+``token_loop``, ``loop_setup`` holding ``prefill`` (counter ``tokens``), one
+``moe`` an expert layer an eager forward, and the ``token_step`` spans.
 """
 
 from __future__ import annotations
@@ -117,6 +122,12 @@ def span(name: str, **counts: int):
     if _record is None:
         return _OFF
     return _On(name, counts, _record)
+
+
+def is_recording() -> bool:
+    """Whether spans are being recorded (inside ``recording()``): counters
+    that cost a host sync are read only then."""
+    return _record is not None
 
 
 @contextlib.contextmanager
