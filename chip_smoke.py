@@ -271,11 +271,21 @@ line):
     while a wrong kernel's that reads a tile of keys past t reads over it;
     printed beside it, one key short and the scale without YaRN's
     mscale^2), the position as a device tensor bitwise equal to the int,
-    and the eager tokens bitwise equal to the graphed call's. K5 timed at (512, 16, 576) over L = 768 at
-    t = 511, 640, 766: the kernel between CUDA events and from a graph, the
-    plain version, the library (SDPA over the cache as one key/value head,
-    values a view of its first 512, a bool mask of t) and the bound (bytes:
-    the live cache rows, q and the output);
+    and the eager tokens bitwise equal to the graphed call's. K6
+    (``moe_dispatch`` and ``moe_combine``) 26 times each a decode step and a
+    prefill chunk (6,734 a call), and in the eager call every one of those
+    launches held against ``moe_dispatch_plain`` / ``moe_combine_plain`` on
+    the same tensors: the experts, ends, positions, routed rows and
+    ``expert_load``'s change exactly, the weights within 1e-6 relative
+    (beside the least reading of a wrong kernel that flips
+    ``norm_topk_prob``), y within 1 bf16 ulp (beside the least reading of a
+    wrong kernel that drops the last slot's weight). K5 timed at (512, 16,
+    576) over L = 768 at t = 511, 640, 766: the kernel between CUDA events
+    and from a graph, the plain version, the library (SDPA over the cache as
+    one key/value head, values a view of its first 512, a bool mask of t) and
+    the bound (bytes: the live cache rows, q and the output); K6's two halves
+    at 512 and 65,536 tokens through their wrappers, beside their plain
+    versions, the byte bound and the gate logits' own time;
 
 then the ``kernels`` JSON line and, last, the device JSON line.
 
@@ -4083,6 +4093,22 @@ LM_PREFILL = 65536  # tokens a prefill chunk, as the cell's traffic
 K5_TS = (511, 640, 766)
 K5_TOL = 1e-2  # relative error of a (row, head) output
 K5_TILE = 64  # keys a tile of K5
+K6_W_TOL = 1e-6  # relative error of a routing weight
+K6_Y_ULPS = 1  # bf16 units in the last place of the combine's output
+
+
+def _w_rel(got, want):
+    """The largest relative error of the routing weights (all positive)."""
+    return ((got - want).abs() / want).max()
+
+
+def _bf16_ulps(a, b):
+    """The largest distance between two bf16 tensors in bf16 steps (+0 and
+    -0 the same value)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs().max().float()
 
 
 def _k5_rel(got, want):
@@ -4131,14 +4157,16 @@ def _k5_times(q, cache, scale):
 @phase
 def lm_generate_path():
     """Phase 35: DeepSeek-V2-Lite through ``make_lm_generator`` at the
-    ``dsv2_lite`` cell's call, K5 held against its plain version on every
-    launch of an eager call, and K5's times."""
+    ``dsv2_lite`` cell's call, K5 and K6 held against their plain versions on
+    every launch of an eager call, and K5's and K6's times."""
     from unittest import mock
 
     from dyadic_interaction_modeling_tpu_torch import kernels
     from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import make_lm_generator
     from dyadic_interaction_modeling_tpu_torch.kernels.latent_decode import (
         latent_decode, latent_decode_plain)
+    from dyadic_interaction_modeling_tpu_torch.kernels.moe_route import (
+        moe_combine, moe_combine_plain, moe_dispatch, moe_dispatch_plain)
     from dyadic_interaction_modeling_tpu_torch.models import deepseek_v2, xtrans
     from dyadic_interaction_modeling_tpu_torch.utils.profiling import recording
 
@@ -4168,8 +4196,12 @@ def lm_generate_path():
     launches = dict(kernels.LAUNCHES)
     want = {k: 0 for k in launches}
     want["latent_decode"] = layers * steps
+    moe_layers = sum(cfg.is_moe(i) for i in range(layers))
+    chunks = -(-LM_B * LM_P // LM_PREFILL)
+    want["moe_dispatch"] = want["moe_combine"] = moe_layers * (steps + chunks)
     check(launches == want, f"dsv2 call launches {launches} == {want} (K5 {layers} a decode "
-          f"step x {steps})")
+          f"step x {steps}; K6 {moe_layers} a decode step and a prefill chunk x "
+          f"({steps} + {chunks}))")
     (loop,) = [s.counts for s in spans if s.name == "token_loop"]
     (top,) = [s.counts for s in spans if s.name == "generate"]
     check(loop["graphed"] == steps and loop["captured"] == 0,
@@ -4198,9 +4230,34 @@ def lm_generate_path():
             captured.update(q=q.clone(), cache=cache.clone(), scale=scale)
         return out
 
+    dispatched, combined = [], []
+
+    def dispatch_checked(x, gate, k, norm_topk, scaling, load=None):
+        want_load = None if load is None else load.clone()
+        out = moe_dispatch(x, gate, k, norm_topk, scaling, load)
+        want = moe_dispatch_plain(x, gate, k, norm_topk, scaling, want_load)
+        other = moe_dispatch_plain(x, gate, k, not norm_topk, scaling)[0]
+        same = [torch.equal(a, b) for a, b in zip(out[1:], want[1:])]  # ids, ends, pos, xs
+        same.append(load is None or torch.equal(load, want_load))
+        dispatched.append(torch.stack([torch.tensor(same, device="cuda").all().float(),
+                                       _w_rel(out[0], want[0]), _w_rel(other, want[0])]))
+        return out
+
+    def combine_checked(ys, w, pos, shared=None):
+        y = moe_combine(ys, w, pos, shared)
+        dropped = w.clone()
+        dropped[:, -1] = 0
+        want = moe_combine_plain(ys, w, pos, shared)
+        combined.append(torch.stack([_bf16_ulps(y, want),
+                                     _bf16_ulps(moe_combine_plain(ys, dropped, pos, shared),
+                                                want)]))
+        return y
+
     xtrans._GRAPHS.clear()  # the graph's cache and buffers make room for the eager call's
     torch.cuda.empty_cache()
     with mock.patch.object(deepseek_v2, "latent_decode", recorded), \
+            mock.patch.object(deepseek_v2, "moe_dispatch", dispatch_checked), \
+            mock.patch.object(deepseek_v2, "moe_combine", combine_checked), \
             mock.patch.object(xtrans, "graph_engages", lambda *a: False):
         eager = call(2)
     errs = torch.stack(seen).cpu()
@@ -4212,6 +4269,22 @@ def lm_generate_path():
     say(f"the largest relative error of other wrong kernels: one key short {short:.2e}, "
         f"the scale without YaRN's mscale^2 {unscaled:.2e}")
     check(bool(errs[:, 4].all()), "K5 with the position on the card == with the int, bitwise")
+    k6_launches = moe_layers * (steps + chunks)
+    check(len(dispatched) == len(combined) == k6_launches,
+          f"{len(dispatched)} moe_dispatch and {len(combined)} moe_combine launches recorded "
+          f"== {k6_launches} ({moe_layers} x ({steps} + {chunks}))")
+    d, c = torch.stack(dispatched).cpu(), torch.stack(combined).cpu()
+    w_err, w_other = float(d[:, 1].max()), float(d[:, 2].min())
+    y_ulps, y_dropped = float(c[:, 0].max()), float(c[:, 1].min())
+    check(bool(d[:, 0].all()), "K6 on every launch of the eager call: experts, ends, positions, "
+          "routed rows and expert_load's change == moe_dispatch_plain's, exactly")
+    check(w_err < K6_W_TOL < w_other,
+          f"K6 weights on every launch: largest relative error {w_err:.2e} < {K6_W_TOL} < "
+          f"{w_other:.2e}, the least of a wrong kernel's that flips norm_topk_prob")
+    check(y_ulps <= K6_Y_ULPS < y_dropped,
+          f"K6 combine on every launch: at most {y_ulps:.0f} bf16 ulp from moe_combine_plain "
+          f"<= {K6_Y_ULPS} < {y_dropped:.0f}, the least of a wrong kernel's that drops the "
+          "last slot's weight")
     check(torch.equal(eager, graphed), "dsv2 eager tokens == graphed tokens, bitwise")
     q, cache, scale = captured["q"], captured["cache"], captured["scale"]
     del model, gen, graphed, eager
@@ -4221,7 +4294,10 @@ def lm_generate_path():
     return {"launches": launches, "call_s": call_s, "k5_max_rel_err": k5_err,
             "wrong_kernel_max_rel_err": {"one_key_short": short, "tile_past_t": past,
                                          "scale_without_mscale2": unscaled}, "k5": times,
-            "expert_load_pm": top["expert_load_pm"]}
+            "k6_checked": {"launches": k6_launches, "w_max_rel_err": w_err,
+                           "y_max_bf16_ulps": y_ulps, "wrong_w_other_norm_min_rel_err": w_other,
+                           "wrong_y_slot_dropped_min_bf16_ulps": y_dropped},
+            "k6": _k6_times(cfg), "expert_load_pm": top["expert_load_pm"]}
 
 
 @phase
@@ -4517,6 +4593,50 @@ def kernels_line(gen_launches, mqa_launches, mqa_wide, train, vq, ft, spk, rf, k
         "render_train": {k: v for k, v in rt.items() if k != "launches"}, "mesh": mesh}
 
 
+def _k6_times(cfg):
+    """K6's two halves at the dsv2 cell's decode step (512 tokens) and
+    prefill chunk (65,536), in ms from CUDA graphs: the wrappers on the card
+    (``moe_dispatch``: the fp32 gate logits, route and scatter;
+    ``moe_combine``), their plain versions on the same tensors, the byte
+    bound, and the gate logits' own time."""
+    import torch.nn.functional as F
+
+    from dyadic_interaction_modeling_tpu_torch.kernels.moe_route import (
+        moe_combine, moe_combine_plain, moe_dispatch, moe_dispatch_plain)
+
+    h, e, k = cfg.hidden_size, cfg.n_routed_experts, cfg.num_experts_per_tok
+    norm, scaling = cfg.norm_topk_prob, cfg.routed_scaling_factor
+    g = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for n in (LM_B, LM_PREFILL):
+        x = torch.randn(n, h, generator=g, device="cuda").bfloat16()
+        gate = (torch.randn(e, h, generator=g, device="cuda") * h ** -0.5).bfloat16()
+        shared = torch.randn(n, h, generator=g, device="cuda").bfloat16()
+        ys = torch.randn(n * k, h, generator=g, device="cuda").bfloat16()
+        load = torch.zeros(e, dtype=torch.int64, device="cuda")
+        w, _, _, pos, _ = moe_dispatch(x, gate, k, norm, scaling, load)
+        inner = 1 if n > LM_B else 10
+        d_bytes = n * e * 4 + n * h * 2 + n * k * (h * 2 + 12)  # logits, x; xs, w, ids, pos
+        c_bytes = n * k * (h * 2 + 8) + 2 * n * h * 2  # ys, w, pos; shared, y
+        r = {"dispatch": dict(
+                 graph_ms=graph_ms(lambda: moe_dispatch(x, gate, k, norm, scaling, load),
+                                   inner=inner),
+                 plain_graph_ms=graph_ms(
+                     lambda: moe_dispatch_plain(x, gate, k, norm, scaling, load), inner=inner),
+                 bound_ms=d_bytes / HBM_BYTES_PER_S * 1e3),
+             "combine": dict(
+                 graph_ms=graph_ms(lambda: moe_combine(ys, w, pos, shared), inner=inner),
+                 plain_graph_ms=graph_ms(lambda: moe_combine_plain(ys, w, pos, shared),
+                                         inner=inner),
+                 bound_ms=c_bytes / HBM_BYTES_PER_S * 1e3),
+             "gate_logits_graph_ms": graph_ms(lambda: F.linear(x.float(), gate.float()),
+                                              inner=inner)}
+        out[n] = r
+        say(f"K6 at {n} tokens (hidden {h}, {e} experts top-{k}): {r}")
+        del x, shared, ys, w, pos
+    return out
+
+
 def _k5_entry(lm) -> dict:
     return {"name": "latent_decode", "route": "cuda",
             "source": "dyadic_interaction_modeling_tpu_torch/csrc/latent_decode.cu",
@@ -4525,6 +4645,16 @@ def _k5_entry(lm) -> dict:
             "max_rel_err": lm["k5_max_rel_err"], "bound_by": "bytes",
             "cases": {f"({LM_B},16,576) L={LM_P + LM_T} t={t} bf16": c
                       for t, c in lm["k5"].items()}}
+
+
+def _k6_entry(lm) -> dict:
+    n = lm["launches"]["moe_dispatch"]
+    return {"name": "moe_dispatch+moe_combine", "route": "cuda",
+            "source": "dyadic_interaction_modeling_tpu_torch/csrc/moe_route.cu",
+            "replaces": None, "launches": n, "launches_by_path": {"dsv2_lite_generate": n},
+            "bound_by": "bytes",
+            "cases": {f"{rows} tokens, hidden 2048, 64 experts top-6 bf16": c
+                      for rows, c in lm["k6"].items()}}
 
 
 def main() -> int:
@@ -4545,8 +4675,8 @@ def main() -> int:
         if FAILURES or None in (smi, build_s, lm):
             say(f"FAILED: {FAILURES}")
             return 1
-        say(json.dumps({"kernels": [_k5_entry(lm)], "dsv2_call_s": lm["call_s"],
-                        "expert_load_pm": lm["expert_load_pm"]}))
+        say(json.dumps({"kernels": [_k5_entry(lm), _k6_entry(lm)],
+                        "dsv2_call_s": lm["call_s"], "expert_load_pm": lm["expert_load_pm"]}))
         return 0
     k4 = k4_check()
     k1 = k1_check()
@@ -4638,6 +4768,7 @@ def main() -> int:
                         k23, t, tt, routes, refs, ft64, build_s, ptxas, biwi, s2s, speech, render,
                         avatar, rt, mesh)
     line["kernels"].append(_k5_entry(lm))
+    line["kernels"].append(_k6_entry(lm))
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

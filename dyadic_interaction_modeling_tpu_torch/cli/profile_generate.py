@@ -30,7 +30,10 @@ through ``engine.pt_engine.make_lm_generator`` at the benchmark's shape:
 512 prompts of 512 random ids, 256 tokens sampled a sequence at top-k 50;
 besides the stages it prints the prefill's tokens, the ``moe`` spans, the
 token loop's counters (``graphed``, ``captured``) and the call's
-``expert_load_pm``.
+``expert_load_pm``; then the expert layers' device time outside their
+grouped GEMMs, by operation: the profiled call's prefill, and
+``LM_EAGER_STEPS`` decode steps run eagerly after a prefill (a replayed step
+has no spans), with their sum over a call.
 
 The analysis (``device_ops``, ``host_idle``, ``stages``, ``by_position``,
 ``graph_numbers``) runs on the CPU too, on any profile and spans.
@@ -53,6 +56,7 @@ import torch
 CLIPS, SAMPLES, LENGTH, SEED = 256, 10, 256, 0
 # the context-free decoder's call: sequences, prompt ids, sampled tokens, top-k
 LM_SEQUENCES, LM_PROMPT, LM_TOKENS, LM_TOP_K = 512, 512, 256, 50
+LM_EAGER_STEPS = 8  # decode steps run eagerly, for their ``moe`` spans
 LOOP = ("token_loop", "loop_setup", "token_step")
 # the stages of one generate call and of the wait for its candidates
 CALL = ("generate", "encode", "vq_decode", "to_host") + LOOP
@@ -63,6 +67,8 @@ OUTSIDE = "outside"
 UNLINKED = "unlinked"
 # the CUDA API calls (``cuda*``, ``cu*``) among the profiler's host events
 RUNTIME = re.compile(r"cu(da)?[A-Z]")
+# the grouped GEMMs of ``torch._grouped_mm`` (CUTLASS) among the kernels' names
+GROUPED_GEMM = re.compile(r"GroupProblemShape|grouped_gemm|GroupedGemm|grouped_mm", re.I)
 
 
 def _busy_us(events) -> float:
@@ -188,6 +194,18 @@ def per_span(spans, ops, window: Tuple[int, int]):
             k = sp.id if sp else 0
             idle[k] = idle.get(k, 0) + ns
     return dev, idle
+
+
+def span_kernels(spans, ops, window: Tuple[int, int], name: str) -> Dict[str, int]:
+    """The device time (ns) by operation name of the ``ops`` launched while
+    a span named ``name`` was the innermost open."""
+    line = _Timeline(_closed(spans, window[1]))
+    out: Dict[str, int] = {}
+    for op, s, e, launch in ops:
+        sp = None if launch is None else line.at(launch)
+        if sp is not None and sp.name == name:
+            out[op] = out.get(op, 0) + e - s
+    return out
 
 
 def stages(spans, ops, window: Tuple[int, int]) -> Dict[str, Dict[str, float]]:
@@ -333,7 +351,40 @@ def profile_lm(config: str) -> int:
     print(f"token loop: {loop.counts}, expert_load_pm {call.counts['expert_load_pm']}; "
           f"the warm-up call captured "
           f"{graph_numbers(warm)['captured']} graph(s)")
+    prefill_rest = _print_moe("prefill", spans, device_ops(prof), (t0, t1))
+    # a replayed step records no span: the decode's expert layers, eagerly
+    cache = model.init_cache(LM_SEQUENCES, LM_PROMPT + LM_TOKENS, torch.bfloat16, "cuda")
+    with torch.no_grad():
+        model.prefill(ids, cache)
+        with recording() as spans, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time_ns()
+            for t in range(LM_PROMPT, LM_PROMPT + LM_EAGER_STEPS):
+                model.decode_step(ids[:, -1:], cache, t)
+            torch.cuda.synchronize()
+            t1 = time.time_ns()
+    decode_rest = _print_moe("eager decode", spans, device_ops(prof), (t0, t1))
+    steps = LM_TOKENS - 1
+    print(f"the expert layers outside the grouped GEMMs, a call: prefill "
+          f"{prefill_rest * 1e-9:.3f} s + decode {decode_rest * 1e-9 * steps / LM_EAGER_STEPS:.3f}"
+          f" s ({steps} steps at the eager steps' device time)")
     return 0
+
+
+def _print_moe(phase: str, spans, ops, window: Tuple[int, int]) -> int:
+    """The device time of the ``moe`` spans by operation, the grouped GEMMs
+    apart; returns the rest, in ns."""
+    by_op = span_kernels(spans, ops, window, "moe")
+    gemm = sum(ns for op, ns in by_op.items() if GROUPED_GEMM.search(op))
+    rest = sum(by_op.values()) - gemm
+    n = sum(1 for sp in spans if sp.name == "moe")
+    print(f"{phase}: {n} moe spans, {sum(by_op.values()) / 1e6:.2f} ms of device time: grouped "
+          f"GEMMs {gemm / 1e6:.2f} ms, the rest {rest / 1e6:.2f} ms "
+          f"({rest / 1e3 / max(1, n):.1f} us a span)")
+    rows = sorted(((ns, op) for op, ns in by_op.items() if not GROUPED_GEMM.search(op)),
+                  reverse=True)
+    for ns, op in rows[:14]:
+        print(f"  {ns / 1e6:9.3f} ms  {op[:100]}")
+    return rest
 
 
 def main(argv=None) -> int:

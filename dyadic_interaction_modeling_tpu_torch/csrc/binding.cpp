@@ -1,13 +1,14 @@
 // Python binding of the port's CUDA kernels: the one source that includes
 // PyTorch's headers (they take the bulk of the build time). Its callers, the
-// wrappers in kernels/decode.py, kernels/attention.py, kernels/vq.py and
-// kernels/latent_decode.py,
+// wrappers in kernels/decode.py, kernels/attention.py, kernels/vq.py,
+// kernels/latent_decode.py and kernels/moe_route.py,
 // check device, dtype, shape and contiguity and raise on what a kernel does
 // not take. Each function here allocates its outputs (and scratch), launches
 // on PyTorch's current stream of the input's device and checks the launch.
 
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAException.h>
+#include <c10/cuda/CUDAGraphsC10Utils.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
@@ -29,15 +30,22 @@ int mask_div(const torch::Tensor& q, const c10::optional<torch::Tensor>& key_mas
 // flash_attention.cu, both on the tensor cores.
 bool takes_mma(const torch::Tensor& q) { return q.scalar_type() == torch::kBFloat16; }
 
-// K1's arrival counters, one buffer a device: zero when made, and every
-// launch leaves the counters it used at zero, so a call needs no memset.
-int* decode_counters(const torch::Tensor& q, int64_t n) {
-  static auto* by_device = new std::vector<torch::Tensor>();  // never freed
-  const size_t dev = (size_t)q.get_device();
-  if (by_device->size() <= dev) by_device->resize(dev + 1);
-  torch::Tensor& buf = (*by_device)[dev];
-  if (!buf.defined() || buf.numel() < n)
-    buf = torch::zeros({std::max<int64_t>(n, 4096)}, q.options().dtype(torch::kInt));
+// Arrival counters, one buffer a device for each user (0: K1, 1: K6's
+// dispatch): zero when made, and every launch leaves the counters it used at
+// zero, so a call needs no memset. The buffer is made on a call outside a
+// CUDA graph's capture (a fill inside one would run only at its replays).
+int* arrival_counters(const torch::Tensor& like, int64_t n, int user) {
+  static auto* by_device = new std::vector<torch::Tensor>[2]();  // never freed
+  std::vector<torch::Tensor>& bufs = by_device[user];
+  const size_t dev = (size_t)like.get_device();
+  if (bufs.size() <= dev) bufs.resize(dev + 1);
+  torch::Tensor& buf = bufs[dev];
+  if (!buf.defined() || buf.numel() < n) {
+    TORCH_CHECK(
+        c10::cuda::currentStreamCaptureStatusMayInitCtx() == c10::cuda::CaptureStatus::None,
+        "arrival counters are first made outside a CUDA graph's capture");
+    buf = torch::zeros({std::max<int64_t>(n, 4096)}, like.options().dtype(torch::kInt));
+  }
   return buf.data_ptr<int>();
 }
 
@@ -58,9 +66,9 @@ torch::Tensor decode_attention(const torch::Tensor& q, const torch::Tensor& k,
   C10_CUDA_CHECK(decode_attention_launch(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr(key_mask),
       t ? t->data_ptr<int32_t>() : nullptr, (int)t_val, out.data_ptr(),
-      n_part ? part.data_ptr<float>() : nullptr, n_count ? decode_counters(q, n_count) : nullptr,
-      rows, nq, L, D, mask_div(q, key_mask), (float)scale, bf16,
-      at::cuda::getCurrentCUDAStream()));
+      n_part ? part.data_ptr<float>() : nullptr,
+      n_count ? arrival_counters(q, n_count, 0) : nullptr, rows, nq, L, D,
+      mask_div(q, key_mask), (float)scale, bf16, at::cuda::getCurrentCUDAStream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   return out;
 }
@@ -152,6 +160,46 @@ torch::Tensor latent_decode(const torch::Tensor& q, const torch::Tensor& cache,
   return out;
 }
 
+// K6: the routing and the routed rows of an expert layer from its fp32 gate
+// logits; returns w, ids, ends, pos, xs.
+std::vector<torch::Tensor> moe_dispatch(const torch::Tensor& logits, const torch::Tensor& x,
+                                        int64_t k, bool norm_topk, double scaling,
+                                        const c10::optional<torch::Tensor>& load) {
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int n = (int)x.size(0), H = (int)x.size(1), E = (int)logits.size(1);
+  auto ints = x.options().dtype(torch::kInt);
+  auto w = torch::empty({n, k}, x.options().dtype(torch::kFloat));
+  auto ids = torch::empty({n, k}, ints);
+  auto pos = torch::empty({n, k}, ints);
+  auto ends = torch::empty({E}, ints);
+  auto xs = torch::empty({n * k, H}, x.options());
+  int64_t n_scratch = 0;
+  moe_dispatch_scratch(n, E, (int)k, &n_scratch);
+  auto scratch = torch::empty({n_scratch}, ints);
+  C10_CUDA_CHECK(moe_dispatch_launch(
+      logits.data_ptr<float>(), x.data_ptr(), n, E, (int)k, H, norm_topk, (float)scaling,
+      w.data_ptr<float>(), ids.data_ptr<int32_t>(), ends.data_ptr<int32_t>(),
+      pos.data_ptr<int32_t>(), xs.data_ptr(),
+      load ? reinterpret_cast<long long*>(load->data_ptr<int64_t>()) : nullptr,
+      scratch.data_ptr<int32_t>(), arrival_counters(x, 1, 1),
+      at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return {w, ids, ends, pos, xs};
+}
+
+// K6: y = bf16(sum_j w_j ys[pos_j]), plus the shared rows when given.
+torch::Tensor moe_combine(const torch::Tensor& ys, const torch::Tensor& w,
+                          const torch::Tensor& pos, const c10::optional<torch::Tensor>& shared) {
+  const c10::cuda::CUDAGuard guard(ys.device());
+  const int n = (int)w.size(0), k = (int)w.size(1), H = (int)ys.size(1);
+  auto y = torch::empty({n, H}, ys.options());
+  C10_CUDA_CHECK(moe_combine_launch(ys.data_ptr(), w.data_ptr<float>(), pos.data_ptr<int32_t>(),
+                                    shared ? shared->data_ptr() : nullptr, y.data_ptr(), n, k,
+                                    H, at::cuda::getCurrentCUDAStream()));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  return y;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -160,4 +208,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_bwd", &flash_attention_bwd, "K3: flash attention backward");
   m.def("vq_argmin", &vq_argmin, "K4: nearest-codebook argmin");
   m.def("latent_decode", &latent_decode, "K5: latent (MLA) decode attention");
+  m.def("moe_dispatch", &moe_dispatch, "K6: expert routing and the routed rows");
+  m.def("moe_combine", &moe_combine, "K6: the weighted combine of the experts' rows");
 }

@@ -95,4 +95,30 @@ cudaError_t latent_decode_launch(const void* q, const void* cache, const int32_t
                                  int t_val, void* out, float* partials, int rows, int L,
                                  float scale, cudaStream_t stream);
 
+// K6, moe_route.cu: the expert layer's routing, dispatch and combine.
+// moe_dispatch: logits (n, E) fp32 and x (n, H) bf16, contiguous, H a
+// multiple of 8, E <= MOE_MAX_EXPERTS, 1 <= k <= min(MOE_MAX_K, E) -> w (n,
+// k) fp32 and ids (n, k) int32 (the greedy top-k of the softmax, ties to the
+// lower expert, slots by score), ends (E,) int32 (expert e's pairs end at
+// ends[e]), pos (n, k) int32 (the pair's row in the routed order) and xs
+// (n * k, H) bf16 (x's rows grouped by expert, token order within each);
+// load (E,) int64 (null: none) gains each expert's count. `scratch` holds
+// the ints moe_dispatch_scratch gives; `arrivals` one int, zero at the
+// launch, which the launch leaves at zero.
+// moe_combine: ys (n * k, H) bf16, w and pos as moe_dispatch gives them,
+// shared (n, H) bf16 or null -> y (n, H) bf16.
+#define MOE_MAX_EXPERTS 256
+#define MOE_MAX_K 8
+
+void moe_dispatch_scratch(int n, int E, int k, int64_t* ints);
+
+cudaError_t moe_dispatch_launch(const float* logits, const void* x, int n, int E, int k, int H,
+                                bool norm_topk, float scaling, float* w, int32_t* ids,
+                                int32_t* ends, int32_t* pos, void* xs, long long* load,
+                                int32_t* scratch, int* arrivals, cudaStream_t stream);
+
+cudaError_t moe_combine_launch(const void* ys, const float* w, const int32_t* pos,
+                               const void* shared, void* y, int n, int k, int H,
+                               cudaStream_t stream);
+
 }  // extern "C"

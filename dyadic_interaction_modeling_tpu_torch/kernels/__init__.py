@@ -13,7 +13,7 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"decode_attention": 0, "flash_attention_fwd": 0,
                              "flash_attention_bwd": 0, "nearest_code": 0,
-                             "latent_decode": 0}
+                             "latent_decode": 0, "moe_dispatch": 0, "moe_combine": 0}
 
 
 def reset_launch_counts() -> None:

@@ -17,7 +17,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("binding.cpp", "decode_attention.cu", "flash_attention.cu",
-           "flash_attention_mma.cu", "latent_decode.cu", "vq_argmin.cu")
+           "flash_attention_mma.cu", "latent_decode.cu", "moe_route.cu", "vq_argmin.cu")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _EXT = None

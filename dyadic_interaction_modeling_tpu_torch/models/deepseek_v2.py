@@ -28,15 +28,16 @@ shared experts), a final RMSNorm and an untied head. It brings what
   tables times mscale(factor, mscale) / mscale(factor, mscale_all_dim), and
   the softmax scale 192^-0.5 times mscale(factor, mscale_all_dim)^2.
 * The router in fp32 (``MoEGate``): softmax scores, the top ``k`` by
-  ``greedy``, weights times ``routed_scaling_factor`` (normalised first when
-  ``norm_topk_prob``). The routed experts' outputs are weighted and summed in
-  fp32, then cast; the shared experts (one SwiGLU of ``n_shared_experts``
-  times the expert width) are added in the model's dtype, as ``moe_infer``
-  does.
-* The expert layer with static shapes: the token-expert pairs sorted by
-  expert, the per-expert ends found on the card (``searchsorted``), one
-  grouped GEMM a projection (``torch._grouped_mm``) on the card, so it
-  replays inside a CUDA graph with no host sync; on the CPU a loop over the
+  ``greedy`` (ties to the lower expert), weights times
+  ``routed_scaling_factor`` (normalised first when ``norm_topk_prob``). The
+  routed experts' outputs are weighted and summed in fp32, then cast; the
+  shared experts (one SwiGLU of ``n_shared_experts`` times the expert width)
+  are added in the model's dtype, as ``moe_infer`` does.
+* The expert layer with static shapes: K6 (``kernels/moe_route.py``) routes
+  and groups the token-expert pairs by expert with each expert's end, one
+  grouped GEMM a projection (``torch._grouped_mm``) runs the experts on the
+  card, and K6 combines: no host sync, so it replays inside a CUDA graph; on
+  the CPU the plain versions (a stable sort by expert) and a loop over the
   experts' row ranges. A decode step adds each expert's pair count to
   ``expert_load`` on the card.
 
@@ -55,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.latent_decode import latent_decode
+from ..kernels.moe_route import moe_combine, moe_dispatch
 from ..utils.profiling import span
 from .xtrans import device_step
 
@@ -240,34 +242,17 @@ class MoE(nn.Module):
                                    cfg.moe_intermediate_size * cfg.n_shared_experts)
                                if cfg.n_shared_experts else None)
 
-    def route(self, x: torch.Tensor):
-        """(N, H) -> (N, k) fp32 weights and int64 experts."""
-        scores = F.linear(x.float(), self.gate.weight.float()).softmax(dim=-1)
-        w, ids = torch.topk(scores, self.top_k, dim=-1, sorted=False)
-        if self.top_k > 1 and self.norm_topk:
-            w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
-        return w * self.scaling, ids
-
     def forward(self, x: torch.Tensor, load: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (..., H); ``load`` (E,) int64, when given, gains each expert's
         token count."""
         with span("moe"):
             shape = x.shape
             x = x.reshape(-1, shape[-1])
-            w, ids = self.route(x)
-            flat = ids.reshape(-1)
-            order = torch.argsort(flat, stable=True)
-            experts = torch.arange(self.experts.n, device=x.device, dtype=flat.dtype)
-            ends = torch.searchsorted(flat[order], experts, right=True)
-            if load is not None:
-                load.add_(torch.diff(ends, prepend=ends.new_zeros(1)))
-            ys = self.experts(x[order // self.top_k], ends.to(torch.int32))
-            routed = torch.empty_like(ys).index_copy_(0, order, ys)
-            y = (routed.view(-1, self.top_k, shape[-1]).float() * w[..., None]).sum(dim=1)
-            y = y.to(x.dtype)
-            if self.shared_experts is not None:
-                y = y + self.shared_experts(x)
-            return y.view(shape)
+            w, _, ends, pos, xs = moe_dispatch(x, self.gate.weight, self.top_k, self.norm_topk,
+                                               self.scaling, load)
+            ys = self.experts(xs, ends)
+            shared = None if self.shared_experts is None else self.shared_experts(x)
+            return moe_combine(ys, w, pos, shared).view(shape)
 
 
 class MLA(nn.Module):

@@ -318,11 +318,55 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   return r;
 }
 
+template <typename T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  static_assert(sizeof(T) <= sizeof(uint64_t));
+  auto& w = emulation::warp();
+  const int l = emulation::lane();
+  std::memcpy(&w.f[l], &v, sizeof(T));
+  w.bar.arrive_and_wait();
+  T r = v;  // a lane below delta keeps its own value
+  if (l >= (int)delta) std::memcpy(&r, &w.f[l - delta], sizeof(T));
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+// The warp-wide unsigned reductions (redux.sync) over every lane of the warp.
+template <typename Op>
+inline unsigned warp_reduce(unsigned v, Op op) {
+  auto& w = emulation::warp();
+  w.f[emulation::lane()] = v;
+  w.bar.arrive_and_wait();
+  unsigned r = (unsigned)w.f[0];
+  for (int i = 1; i < w.bar.expected; ++i) r = op(r, (unsigned)w.f[i]);
+  w.bar.arrive_and_wait();
+  return r;
+}
+
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return warp_reduce(v, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return warp_reduce(v, [](unsigned a, unsigned b) { return a < b ? a : b; });
+}
+
 // Blocks run one after another, so every other block's writes are visible:
 // the fence is a full fence and the L2-only load a plain load.
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 inline float __ldcg(const float* p) { return *p; }
+inline int __ldcg(const int* p) { return *p; }
+
+// Round-to-nearest product and sum, never contracted into a fused multiply-add.
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline float __fadd_rn(float a, float b) {
+  volatile float r = a + b;
+  return r;
+}
 
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 

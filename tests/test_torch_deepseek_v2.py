@@ -8,19 +8,22 @@ the sorted grouped expert layer against its loop, the YaRN tables and scale,
 ``generate_tokens`` on the context-free decoder under injected Gumbel noise
 token for token, K5's plain version against dense attention. Marked
 ``cuda`` (skipped where no card is present): K5 against its plain version,
-and the graphed token loop against the eager one, bitwise. On the card,
-without the repo's conftest (it imports JAX):
+K6's expert layer against the sorted path it replaced at the cell's decode
+and prefill shapes, and the graphed token loop against the eager one,
+bitwise. On the card, without the repo's conftest (it imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_deepseek_v2.py
 """
 
 from __future__ import annotations
 
+import json
 import math
 from pathlib import Path
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dyadic_interaction_modeling_tpu_torch.engine.pt_engine import make_lm_generator
 from dyadic_interaction_modeling_tpu_torch.kernels import LAUNCHES
@@ -287,6 +290,71 @@ def test_k5_matches_its_plain_version_on_the_card(card):
             latent_decode(args["q"], args["cache"], 3, scale=0.1, dv=args["dv"])
 
 
+def _sorted_moe(moe, x, load):
+    """The expert layer as the port ran it before K6, the plain version of
+    the card's path: ``torch.topk`` of the fp32 softmax, the pairs sorted by
+    expert (``argsort``, ``searchsorted``), the routed rows gathered, the
+    experts' rows scattered back (``index_copy_``), weighted and summed in
+    fp32 (N, k, H), cast, and the shared experts added. Returns y, its
+    routed part, the experts and weights (sorted by expert) and the ends."""
+    k, h = moe.top_k, x.shape[1]
+    w, ids = torch.topk(F.linear(x.float(), moe.gate.weight.float()).softmax(dim=-1), k,
+                        dim=-1, sorted=False)
+    if k > 1 and moe.norm_topk:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    w = w * moe.scaling
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    experts = torch.arange(moe.experts.n, device=x.device)
+    ends = torch.searchsorted(flat[order], experts, right=True)
+    load.add_(torch.diff(ends, prepend=ends.new_zeros(1)))
+    ys = moe.experts(x[order // k], ends.to(torch.int32))
+    routed = torch.empty_like(ys).index_copy_(0, order, ys)
+    routed = (routed.view(-1, k, h).float() * w[..., None]).sum(dim=1).to(x.dtype)
+    ids, perm = ids.sort(dim=-1)
+    return (routed + moe.shared_experts(x), routed, ids, w.gather(1, perm),
+            ends.to(torch.int32), x[order // k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 65536])
+def test_k6_expert_layer_matches_the_sorted_path_on_the_card(card, n):
+    """dsv2_lite's expert layer (hidden 2048, 64 experts top-6, 2 shared) at
+    the cell's decode step (512 tokens) and one prefill chunk (65,536): the
+    experts, their ends, ``expert_load`` and the routed rows identical to
+    the sorted path's, the weights within fp32 rounding, y within bf16
+    rounding of it (the fp32 sum's order differs: 1 ulp of the routed part
+    and of y), and the same bits on a second run."""
+    from dyadic_interaction_modeling_tpu_torch.kernels.moe_route import moe_dispatch
+
+    cfg = D.DeepseekV2Config.from_dict(
+        json.loads((ROOT / "portbench" / "configs" / "dsv2_lite.json").read_text()))
+    with torch.device("cuda"):
+        moe = D.MoE(cfg).to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            p.normal_(0.0, cfg.hidden_size ** -0.5 if name == "gate.weight" else 0.006,
+                      generator=g)
+        x = torch.randn(n, cfg.hidden_size, generator=g, device="cuda").bfloat16()
+        load, want_load = (torch.full((cfg.n_routed_experts,), 7, dtype=torch.int64,
+                                      device="cuda") for _ in range(2))
+        want, routed, ids, w, ends, xs = _sorted_moe(moe, x, want_load)
+        before = dict(LAUNCHES)
+        got = moe(x, load)
+        assert LAUNCHES["moe_dispatch"] - before["moe_dispatch"] == 1
+        assert LAUNCHES["moe_combine"] - before["moe_combine"] == 1
+        assert torch.equal(moe(x), got)
+        kw, kids, kends, _, kxs = moe_dispatch(x, moe.gate.weight, moe.top_k, moe.norm_topk,
+                                               moe.scaling)
+    kids, perm = kids.long().sort(dim=-1)
+    assert torch.equal(kids, ids) and torch.equal(kends, ends) and torch.equal(kxs, xs)
+    assert torch.equal(load, want_load)
+    torch.testing.assert_close(kw.gather(1, perm), w, rtol=1e-6, atol=0)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2 ** -7 * (routed.float().abs() + want.float().abs())).all())
+
+
 @pytest.mark.cuda
 def test_the_graphed_loop_equals_the_eager_loop_bitwise(card):
     """Published attention widths (16 heads, 512 + 64, K5 on the path) at two
@@ -301,7 +369,7 @@ def test_the_graphed_loop_equals_the_eager_loop_bitwise(card):
         for call in range(2):
             ga = torch.Generator(device="cuda").manual_seed(call)
             gb = torch.Generator(device="cuda").manual_seed(call)
-            before = LAUNCHES["latent_decode"]
+            before, moe_before = LAUNCHES["latent_decode"], LAUNCHES["moe_dispatch"]
             with recording() as spans:
                 out = X.generate_tokens(m, prompt, 9, None, None, ga, greedy=greedy)
             ref = X._eager_tokens(m, prompt, 9, None, None, gb, greedy, 1, None, 1.0, 0.1)
@@ -309,3 +377,4 @@ def test_the_graphed_loop_equals_the_eager_loop_bitwise(card):
             (loop,) = [s.counts for s in spans if s.name == "token_loop"]
             assert loop["graphed"] == (7 if call == 0 else 8)
             assert LAUNCHES["latent_decode"] - before == 2 * 2 * 8
+            assert LAUNCHES["moe_dispatch"] - moe_before == 2 * (1 + 8)

@@ -145,6 +145,7 @@ def test_stages_split_host_device_and_idle_by_span():
         assert r["device_s"] == pytest.approx(dev * ns), name
         assert r["idle_s"] == pytest.approx(idle * ns), name
     assert set(rows) == set(want)
+    assert PG.span_kernels(spans, ops, window, "step") == {"c": 10, "e": 8}
     # the card's clock standing off the host's moves nothing
     off = [(n, s + 1000, e + 1000, launch) for n, s, e, launch in ops]
     assert PG.stages(spans, off, window) == rows
