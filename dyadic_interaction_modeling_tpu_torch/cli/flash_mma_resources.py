@@ -8,8 +8,8 @@ With no argument it compiles ``csrc/flash_attention_mma.cu`` (bf16);
 ``flash_attention.cu`` is the fp32 source (3xTF32). Both run on the tensor
 cores. Each builds in seconds (no PyTorch header is involved), so this is
 also the quick way to ask the compiler about an edit. Needs ``nvcc``; the
-kernels' results are checked by ``tests/test_torch_kernels_cuda.py`` and
-``chip_smoke.py``. Every instantiation is listed by its template arguments
+kernels' results are checked by ``tests/test_torch_kernels_cuda.py``.
+Every instantiation is listed by its template arguments
 (D in {48, 64, 96, 128}, causal and the forward's warps in the bf16
 source).
 """

@@ -71,20 +71,6 @@ RUNTIME = re.compile(r"cu(da)?[A-Z]")
 GROUPED_GEMM = re.compile(r"GroupProblemShape|grouped_gemm|GroupedGemm|grouped_mm", re.I)
 
 
-def _busy_us(events) -> float:
-    """Union length of the device intervals of ``events`` (microseconds)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + (0.0 if cur_e is None else cur_e - cur_s)
-
-
 def device_ops(prof) -> List[Tuple[str, int, int, Optional[int]]]:
     """The device operations of a finished ``torch.profiler.profile`` that
     recorded ``ProfilerActivity.CUDA``: (name, start_ns, end_ns, launch_ns)

@@ -19,7 +19,7 @@
 // products is three TF32 ones on the tensor cores (below), so the bound is
 // 3 x operations / 495 TFLOP/s, 165 TFLOP/s of fp32 work: at (8, 1024, 96)
 // 19.5 us forward and 48.8 us backward, at (8, 1024, 48) 9.8 and 24.4 us
-// (chip_smoke.py computes it from each shape it times).
+// (cli/time_kernels.py computes it from each shape it times).
 //
 // Design:
 //

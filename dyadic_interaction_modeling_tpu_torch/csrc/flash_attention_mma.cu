@@ -17,7 +17,7 @@
 //
 // Bound on the H100: at the training step's shapes (L = 255-512, D = 64) the
 // bytes of q, k, v, o bound the forward and, by a little, the backward (see
-// chip_smoke.py for the numbers); the kernels sit well above that bound. A
+// cli/time_kernels.py for the numbers); the kernels sit well above that bound. A
 // block's loop is only 1 to 8 tiles long there, so what holds them is latency:
 // the wait for q and the first tile, and the chain product, softmax, product
 // of each tile, which only the other warps resident on the SM hide. Register

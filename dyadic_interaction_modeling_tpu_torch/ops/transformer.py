@@ -43,13 +43,15 @@ from torch import nn
 from ..kernels.attention import KERNEL_D, flash_attention
 
 # Shortest sequence that takes K2/K3, in fp32 and bf16: the JAX package's
-# lower edge, which the two routes' times on an H100 at 700 W keep (forward
-# + backward at 8 rows; chip_smoke.py vq_attention_routes, PERF.md §6). VQ
-# training pads clips to powers of two. At 256 the matmul route leads or
-# ties; at 1024 K2/K3 lead in both dtypes and at both VQ head widths; at 512
-# they lead in bf16 and in fp32 at the listener VQ's D = 48, and trail 1.48x
-# only in fp32 at the speaker VQ's D = 96, which trains on 1024-frame clips
-# and cannot train on the reference's files (ROADMAP.md queue 3).
+# lower edge. VQ training pads clips to powers of two. The two routes'
+# times, forward + backward at 8 rows on an H100 at 700 W
+# (cli/time_kernels.py's VQ attention rows; PERF.md §6, §7): in bf16 K2/K3
+# lead the matmul route from 512 at both VQ head widths (at 256 they take
+# 0.98x and 1.12x its time); in fp32 they trail at 512 (1.18x at the
+# listener VQ's D = 48, 1.81x at the speaker VQ's D = 96) and lead at 1024
+# but for D = 96 (1.04x behind). The speaker VQ trains on 1024-frame clips
+# and cannot train on the reference's files (ROADMAP.md queue 3). Whether
+# fp32 wants a higher edge is open (PERF.md §7).
 FLASH_MIN_LEN = 512
 
 

@@ -10,7 +10,7 @@ Then each CLI twin's ``main()`` runs on the CPU at small SLM widths on ViCo
 and CANDOR files written by ``data.reference_files`` under ``../data``, as
 the reference lays them out (the SLM twins' VQs at the small widths that
 ``vq_cfg_for`` gives synthetic runs, where files would take the full-width
-VQs: ``chip_smoke.py`` runs those on the card), with reference-layout checkpoints
+VQs: ``tests/test_torch_cli_cuda.py`` runs those on the card), with reference-layout checkpoints
 (``{'state_dict': ...}``, ``module.`` prefix, every norm spelled
 weight/bias) for ``--pretrained`` and ``--state-dict``.
 """

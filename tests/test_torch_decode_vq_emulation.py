@@ -9,7 +9,7 @@ blocks) and their launchers are called through ctypes on CPU tensors. Since
 blocks run in order, the last block of a cache row to arrive is its last
 split, so the in-launch combine of the key splits runs too. What only nvcc
 and the card decide (PTX syntax, registers, races between blocks, speed) is
-``chip_smoke.py``'s and ``tests/test_torch_kernels_cuda.py``'s to see.
+``tests/test_torch_kernels_cuda.py``'s to see.
 
 Tolerances are the card's: K1 fp32 1e-5 and bf16 2e-2 absolute; K4 exact
 indices on inputs with a margin.

@@ -9,8 +9,10 @@ the sorted grouped expert layer against its loop, the YaRN tables and scale,
 token for token, K5's plain version against dense attention. Marked
 ``cuda`` (skipped where no card is present): K5 against its plain version,
 K6's expert layer against the sorted path it replaced at the cell's decode
-and prefill shapes, and the graphed token loop against the eager one,
-bitwise. On the card, without the repo's conftest (it imports JAX):
+and prefill shapes, the graphed token loop against the eager one, bitwise,
+and the ``dsv2_lite`` cell's call at the published widths and depth with
+every K5 and K6 launch of an eager call held against its plain version.
+On the card, without the repo's conftest (it imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_deepseek_v2.py
 """
@@ -34,6 +36,7 @@ from dyadic_interaction_modeling_tpu_torch.models import xtrans as X
 from dyadic_interaction_modeling_tpu_torch.utils.profiling import recording
 
 import plain_deepseek_v2 as R  # beside this file, on sys.path as pytest imports tests
+from torch_card import card, counted, launches  # noqa: F401  (card: a fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 PUBLISHED_ROPE = {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
@@ -265,12 +268,6 @@ def test_the_reference_and_the_benchmarks_copy_are_the_same_file():
 # --- on the card ---------------------------------------------------------
 
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-
-
 @pytest.mark.cuda
 def test_k5_matches_its_plain_version_on_the_card(card):
     g = torch.Generator(device="cuda").manual_seed(16)
@@ -378,3 +375,136 @@ def test_the_graphed_loop_equals_the_eager_loop_bitwise(card):
             assert loop["graphed"] == (7 if call == 0 else 8)
             assert LAUNCHES["latent_decode"] - before == 2 * 2 * 8
             assert LAUNCHES["moe_dispatch"] - moe_before == 2 * (1 + 8)
+
+
+K5_TOL = 1e-2  # relative error of a (row, head) output
+K6_W_TOL = 1e-6  # relative error of a routing weight
+K6_Y_ULPS = 1  # bf16 units in the last place of the combine's output
+
+
+def _bf16_ulps(a, b):
+    """The largest distance between two bf16 tensors in bf16 steps (+0 and
+    -0 the same value)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs().max().float()
+
+
+def _w_rel(got, want):
+    """The largest relative error of the routing weights (all positive)."""
+    return ((got - want).abs() / want).max()
+
+
+def _k5_rel(got, want):
+    """The largest relative L2 error over the (row, head) outputs."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)).max()
+
+
+@pytest.mark.cuda
+def test_the_dsv2_lite_call_on_the_card(card, record_property):
+    """DeepSeek-V2-Lite at its published widths and depth
+    (``portbench/configs/dsv2_lite.json``, bf16, seeded ``init_weights``)
+    through ``make_lm_generator`` at the ``dsv2_lite`` cell's call: 512
+    prompts of 512 ids prefilled in chunks of 65,536 tokens, 256 tokens
+    sampled at top-k 50. A call that captures the graph, then one with its
+    launches counted: K5 27 a decode step, K6's halves 26 a decode step and
+    a prefill chunk, nothing else, all 255 decode steps replayed. Then the
+    same call eagerly with every K5 and K6 launch held against its plain
+    version on its own inputs: K5's relative error under ``K5_TOL``, which a
+    wrong kernel that reads a tile of keys past t exceeds (one key short and
+    the scale without YaRN's mscale^2 are printed beside it), the position
+    on the card bitwise the int's; K6's experts, ends, positions, routed rows
+    and ``expert_load``'s change exact, the weights within ``K6_W_TOL``
+    (under a wrong kernel's that flips ``norm_topk_prob``), y within
+    ``K6_Y_ULPS`` bf16 ulp (under a wrong kernel's that drops the last
+    slot's weight); the eager tokens bitwise the graphed call's."""
+    from unittest import mock
+
+    from dyadic_interaction_modeling_tpu_torch.kernels.moe_route import (
+        moe_combine, moe_combine_plain, moe_dispatch, moe_dispatch_plain)
+
+    b, p, n_tok, prefill = 512, 512, 256, 65536
+    cfg = D.DeepseekV2Config.from_dict(
+        json.loads((ROOT / "portbench" / "configs" / "dsv2_lite.json").read_text()))
+    model = D.DeepseekV2Decoder.empty(cfg, "cuda", torch.bfloat16,
+                                      prefill_tokens=prefill).eval()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    model.init_weights(g)
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=g, device="cuda")
+    gen = make_lm_generator(model)
+    steps, layers = n_tok - 1, cfg.num_hidden_layers
+
+    def call(seed):
+        rng = torch.Generator(device="cuda").manual_seed(seed)
+        return gen(prompt, rng, n_tok, filter_frac=50 / cfg.vocab_size)
+
+    call(1)  # captures the graph
+    with counted() as got, recording() as spans:
+        graphed = call(2).clone()
+    moe_layers = sum(cfg.is_moe(i) for i in range(layers))
+    k6 = moe_layers * (steps + -(-b * p // prefill))
+    assert got == launches(latent_decode=layers * steps, moe_dispatch=k6, moe_combine=k6)
+    record_property("launches", got)
+    (loop,) = [s.counts for s in spans if s.name == "token_loop"]
+    assert loop["graphed"] == steps and loop["captured"] == 0
+    assert bool(((graphed >= 0) & (graphed < cfg.vocab_size)).all())
+
+    rs = cfg.rope_scaling
+    mscale2 = D.yarn_mscale(rs["factor"], rs["mscale_all_dim"]) ** 2
+    seen, dispatched, combined = [], [], []
+
+    def k5_checked(q, cache, t, *, scale, dv):
+        out = latent_decode(q, cache, t, scale=scale, dv=dv)
+        want = latent_decode_plain(q, cache, t, scale=scale, dv=dv)
+        faults = (latent_decode_plain(q, cache, t - 1, scale=scale, dv=dv),
+                  latent_decode_plain(q, cache, t + 64, scale=scale, dv=dv),  # a tile of K5
+                  latent_decode_plain(q, cache, t, scale=scale / mscale2, dv=dv))
+        at = torch.tensor(t, dtype=torch.int32, device="cuda")
+        same = torch.equal(latent_decode(q, cache, at, scale=scale, dv=dv), out)
+        seen.append(torch.stack([_k5_rel(out, want), *(_k5_rel(f, want) for f in faults),
+                                 torch.full((), float(same), device="cuda")]))
+        return out
+
+    def dispatch_checked(x, gate, k, norm_topk, scaling, load=None):
+        want_load = None if load is None else load.clone()
+        out = moe_dispatch(x, gate, k, norm_topk, scaling, load)
+        want = moe_dispatch_plain(x, gate, k, norm_topk, scaling, want_load)
+        other = moe_dispatch_plain(x, gate, k, not norm_topk, scaling)[0]
+        same = [torch.equal(a, b) for a, b in zip(out[1:], want[1:])]  # ids, ends, pos, xs
+        same.append(load is None or torch.equal(load, want_load))
+        dispatched.append(torch.stack([torch.tensor(same, device="cuda").all().float(),
+                                       _w_rel(out[0], want[0]), _w_rel(other, want[0])]))
+        return out
+
+    def combine_checked(ys, w, pos, shared=None):
+        y = moe_combine(ys, w, pos, shared)
+        dropped = w.clone()
+        dropped[:, -1] = 0
+        want = moe_combine_plain(ys, w, pos, shared)
+        combined.append(torch.stack([_bf16_ulps(y, want),
+                                     _bf16_ulps(moe_combine_plain(ys, dropped, pos, shared),
+                                                want)]))
+        return y
+
+    X._GRAPHS.clear()  # the graph's cache and buffers make room for the eager call's
+    torch.cuda.empty_cache()
+    with mock.patch.object(D, "latent_decode", k5_checked), \
+            mock.patch.object(D, "moe_dispatch", dispatch_checked), \
+            mock.patch.object(D, "moe_combine", combine_checked), \
+            mock.patch.object(X, "graph_engages", lambda *a: False):
+        eager = call(2)
+    assert len(seen) == layers * steps
+    errs = torch.stack(seen).cpu()
+    k5_err, short, past, unscaled = (float(e) for e in errs[:, :4].max(dim=0).values)
+    print(f"K5 {k5_err:.2e}; wrong kernels: a tile past t {past:.2e}, one key short "
+          f"{short:.2e}, the scale without YaRN's mscale^2 {unscaled:.2e}")
+    assert k5_err < K5_TOL < past
+    assert bool(errs[:, 4].all())
+    assert len(dispatched) == len(combined) == k6
+    d, c = torch.stack(dispatched).cpu(), torch.stack(combined).cpu()
+    assert bool(d[:, 0].all())
+    assert float(d[:, 1].max()) < K6_W_TOL < float(d[:, 2].min())
+    assert float(c[:, 0].max()) <= K6_Y_ULPS < float(c[:, 1].min())
+    assert torch.equal(eager, graphed)

@@ -12,7 +12,7 @@ indexing of the dk/dv pass, the swizzle, the masks and tails, the cp.async
 group counts and the barriers. It cannot see what only nvcc and the card
 decide: PTX syntax, registers, speed.
 
-Tolerances are the card's for bf16 (``chip_smoke.py``): output 2e-2 absolute
+Tolerances are the card's for bf16 (``tests/test_torch_kernels_cuda.py``): output 2e-2 absolute
 and relative, gradients 2e-2 of the reference's largest magnitude, since the
 kernels round P and dS to bf16 as operands and sum in another order.
 """
@@ -114,7 +114,7 @@ def _run(lib, rows, l, d, causal, mask_kind, strided, seed):
         lse, delta = torch.full((rows, l), nan), torch.full((rows, l), nan)
         assert lib.flash_attention_mma_fwd_launch(
             *map(_ptr, (store[0], store[1], store[2], m8, o, lse)), *common) == 0
-        # K3 takes the plain forward's o and lse, as chip_smoke.py feeds it
+        # K3 takes the plain forward's o and lse, as the card tests feed it
         assert lib.flash_attention_mma_bwd_launch(
             *map(_ptr, (store[0], store[1], store[2], as_stored(ro), store[3], rlse, m8,
                         delta, dq, dk, dv)), *common) == 0

@@ -12,7 +12,7 @@ the two halves of every streamed tile, the masks and tails, the cp.async
 group counts and the barriers. It cannot see what only nvcc and the card
 decide: PTX syntax, registers, speed.
 
-Tolerances are the card's for fp32 (``chip_smoke.py``): output 2e-5
+Tolerances are the card's for fp32 (``tests/test_torch_kernels_cuda.py``): output 2e-5
 absolute, lse 1e-4, gradients 1e-4 of the reference's largest magnitude.
 Shapes are tiny (L <= 80, two key tiles): the emulation runs 256 threads a
 block.
@@ -98,7 +98,7 @@ def _inputs(rows, l, d, mask_kind, seed, q_scale=1.0):
 
 def _kernels(lib, q, k, v, do, ro, rlse, mask, causal, scale):
     """(o, lse) of K2 and (dq, dk, dv, delta) of K3, which takes the plain
-    forward's o and lse, as chip_smoke.py feeds it."""
+    forward's o and lse, as the card tests feed it."""
     rows, l, d = q.shape
     m8 = None if mask is None else mask.to(torch.uint8)
     common = (rows, l, d, 1 if mask is None else H, causal, scale, None)

@@ -1,6 +1,7 @@
-"""The torch port stands alone: neither it nor chip_smoke.py imports jax,
-flax or the JAX package; it imports with those modules blocked; its entry
-points default to the GPU; chip_smoke.py refuses to run without one."""
+"""The torch port stands alone: neither it, ``chip_smoke.py`` nor the card
+tests import jax, flax or the JAX package; it imports with those modules
+blocked; its entry points default to the GPU; ``chip_smoke.py`` and
+``cli.time_kernels`` refuse to run without one."""
 
 import ast
 import inspect
@@ -24,8 +25,12 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_no_jax_imports_in_port_or_chip_smoke():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 20
+    """The port, ``chip_smoke.py``, the card tests and the module they share
+    (the card runs them without the repo's conftest, which imports JAX)."""
+    cards = sorted((REPO / "tests").glob("test_torch_*_cuda.py"))
+    assert len(cards) >= 7
+    files = (sorted(PORT.rglob("*.py")) + cards
+             + [REPO / "tests" / "torch_card.py", REPO / "chip_smoke.py"])
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN)
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -81,15 +86,18 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
-def _run_chip_smoke(cwd):
-    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
-                          text=True, timeout=120,
-                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-
-
 def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):
+    """With no card to see, ``chip_smoke.py`` (in the repo and copied out of
+    it) and the kernel timer exit non-zero and print no result line."""
+    no_card = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     for cwd in (REPO, tmp_path):
-        proc = _run_chip_smoke(cwd)
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                              text=True, timeout=120, env=no_card)
         assert proc.returncode != 0
-        assert '"ok": true' not in proc.stdout
+        assert "CUDA device" in proc.stderr and not proc.stdout.strip()
+    proc = subprocess.run([sys.executable, "-m",
+                           "dyadic_interaction_modeling_tpu_torch.cli.time_kernels"],
+                          cwd=REPO, capture_output=True, text=True, timeout=120, env=no_card)
+    assert proc.returncode != 0
+    assert "CUDA device" in proc.stderr and not proc.stdout.strip()

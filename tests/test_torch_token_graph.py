@@ -21,6 +21,7 @@ import torch
 from dyadic_interaction_modeling_tpu_torch.kernels import LAUNCHES
 from dyadic_interaction_modeling_tpu_torch.models import xtrans as X
 from dyadic_interaction_modeling_tpu_torch.utils.profiling import recording
+from torch_card import card  # noqa: F401  (a fixture)
 
 # the gen cell's layout at a small width: 12 heads of 64, best-of-N rows
 # sharing a context, a context mask
@@ -154,12 +155,6 @@ def test_the_cpu_loop_runs_eagerly_and_counts_no_graphed_step():
 
 
 # --- on the card ---------------------------------------------------------
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
 
 
 def _loop_counts(spans):
